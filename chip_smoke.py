@@ -1,0 +1,331 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero and prints no result:
+
+1. device: the card's name and power limit (``nvidia-smi``); no card, exit 1;
+2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc);
+3. every kernel against its plain PyTorch version on the card at the main
+   path's shapes (rmsnorm [4096, 4096]; flash attention [1, 4096, 32, 128]
+   causal, MHA and GQA; fused AdamW bitwise against the numpy oracle), with
+   kernel, plain-version and library-call times;
+4. a tiny dense cluster on the card against the same cluster on the CPU, for
+   3 steps, within the reference's kernel-consistency bounds;
+5. the main path: ``VirtualCluster.train_step`` on codeqwen1.5-7b at its
+   published widths and dtype, depth cut to 2 layers, dp=2, pp=2, seq 4096,
+   for 3 steps, with exact kernel launch counts and the host ring snapshot
+   bitwise equal to the device shards after every step;
+6. a JSON line with every kernel's numbers, then the result line.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch.configs import codeqwen1p5_7b  # noqa: E402
+from repro_torch.core.cluster import VirtualCluster  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.fused_adam import fused_adam_cuda_  # noqa: E402
+from repro_torch.kernels.rmsnorm import rmsnorm_cuda  # noqa: E402
+from repro_torch.models.registry import tiny_config  # noqa: E402
+from repro_torch.optim.adam import AdamConfig, adam_update_flat_np  # noqa: E402
+from repro_torch.weights import params_to_numpy  # noqa: E402
+
+# H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# kernel-consistency bounds of the reference (core/invariants.py)
+LOSS_RTOL, LOSS_ATOL, PARAM_RTOL, PARAM_ATOL0 = 1e-4, 1e-6, 1e-4, 1e-5
+
+SOURCES = {
+    "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:22"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:78"),
+    "fused_adam": ("src/repro_torch/kernels/csrc/fused_adam.cu",
+                   "src/repro/kernels/fused_adam.py:52"),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def time_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn()`` over ``iters`` launches (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, ops_: float, dtype) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_ / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def within(a: torch.Tensor, b: torch.Tensor, tier: dict) -> tuple:
+    a, b = a.float(), b.float()
+    err = (a - b).abs()
+    ok = bool((err <= tier["atol"] + tier["rtol"] * b.abs()).all())
+    return ok, float(err.max())
+
+
+# ---------------------------------------------------------------------------
+def phase_device() -> str:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        sys.exit(1)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    return card
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"build: {time.perf_counter() - t0:.1f} s "
+        f"(nvcc {_build.last_build_seconds:.1f} s)")
+    for line in _build.last_build_log.splitlines():
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
+            log("  " + line.strip())
+
+
+def kernel_rmsnorm(gen) -> dict:
+    rows, d, eps = 4096, 4096, 1e-5
+    rec = {}
+    for dtype, tier in ((torch.float32, "rmsnorm"),
+                        (torch.bfloat16, "rmsnorm_bf16")):
+        x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+        scale = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        y = rmsnorm_cuda(x, scale, eps)
+        ok, err = within(y, ref.rmsnorm_reference(x, scale, eps),
+                         ops.TOLERANCE_TIERS[tier])
+        log(f"rmsnorm {dtype}: max_abs_err {err:.3e} tier {tier} ok={ok}")
+        check(ok, f"rmsnorm {dtype} outside {tier}")
+        if dtype == torch.bfloat16:     # the main path's dtype
+            nbytes = 2 * rows * d * x.element_size() + 4 * d
+            b, by = bound(nbytes, 4 * rows * d, dtype)
+            sc = scale.to(dtype)
+            rec = dict(max_abs_err=err,
+                       ms=time_ms(lambda: rmsnorm_cuda(x, scale, eps), 50),
+                       plain_ms=time_ms(lambda: ref.rmsnorm_reference(
+                           x, scale, eps), 20),
+                       bound_ms=b, bound_by=by,
+                       library_ms=time_ms(lambda: F.rms_norm(
+                           x, (d,), sc, eps), 50))
+    return rec
+
+
+def kernel_flash(gen) -> dict:
+    B, S, H, hd = 1, 4096, 32, 128
+    rec = {}
+    for dtype, Hkv in ((torch.float32, H), (torch.bfloat16, H),
+                       (torch.bfloat16, 8)):
+        tier = "flash_attention" if dtype == torch.float32 \
+            else "flash_attention_bf16"
+        q = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype)
+        o = flash_attention_cuda(q, k, v, True)
+        ok, err = within(o, ref.gqa_attention_reference(q, k, v, causal=True),
+                         ops.TOLERANCE_TIERS[tier])
+        log(f"flash {dtype} H={H} Hkv={Hkv}: max_abs_err {err:.3e} "
+            f"tier {tier} ok={ok}")
+        check(ok, f"flash attention {dtype} Hkv={Hkv} outside {tier}")
+        ms = time_ms(lambda: flash_attention_cuda(q, k, v, True), 5)
+        plain = time_ms(lambda: ref.gqa_attention_reference(
+            q, k, v, causal=True), 3)
+        rep = H // Hkv
+        qt, kt, vt = (t.transpose(1, 2) for t in (
+            q, k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 5)
+        pairs = B * H * S * (S + 1) // 2
+        nbytes = (2 * B * S * H * hd + 2 * B * S * Hkv * hd) * q.element_size()
+        b, by = bound(nbytes, 4 * hd * pairs, dtype)
+        log(f"  ms {ms:.3f} plain_ms {plain:.3f} library_ms {lib:.3f} "
+            f"bound_ms {b:.4f} ({by})")
+        if dtype == torch.bfloat16 and Hkv == H:     # codeqwen: bf16 MHA
+            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                       bound_by=by, library_ms=lib)
+        del q, k, v, o, qt, kt, vt
+    return rec
+
+
+def kernel_adam(gen, stage_elems: int) -> dict:
+    cfg = AdamConfig()
+    hp = dict(b1=cfg.b1, b2=cfg.b2, eps=cfg.eps, lr=cfg.lr,
+              weight_decay=cfg.weight_decay)
+    # bitwise against the numpy oracle, 3 steps on 64 M elements
+    n = 64 * 2 ** 20
+    rs = np.random.default_rng(0)
+    host = {"master": rs.standard_normal(n, dtype=np.float32),
+            "mu": np.zeros(n, np.float32), "nu": np.zeros(n, np.float32)}
+    dev = {c: torch.from_numpy(v).cuda() for c, v in host.items()}
+    for step in (1, 2, 3):
+        g = (rs.standard_normal(n, dtype=np.float32)
+             * np.float32(10.0 ** rs.integers(-6, 2)))
+        fused_adam_cuda_(torch.from_numpy(g).cuda(), dev["master"],
+                         dev["mu"], dev["nu"], ops.adam_scalars(step, **hp))
+        host = adam_update_flat_np(g, host, step, cfg)
+        for c in host:
+            same = np.array_equal(dev[c].cpu().numpy(), host[c])
+            check(same, f"fused AdamW {c} not bitwise equal to "
+                        f"adam_update_flat_np at step {step}")
+    log(f"fused_adam: bitwise equal to adam_update_flat_np over 3 steps, "
+        f"n={n}")
+    del dev, host
+    # timing at the main path's stage size, kernel vs plain version on card
+    n = stage_elems
+    g = torch.randn(n, generator=gen, device="cuda") * 1e-3
+    st = {"master": torch.randn(n, generator=gen, device="cuda"),
+          "mu": torch.randn(n, generator=gen, device="cuda") * 1e-3,
+          "nu": torch.rand(n, generator=gen, device="cuda") * 1e-6}
+    sc = ops.adam_scalars(3, **hp)
+    want = ref.adam_flat_reference(g, st["master"], st["mu"], st["nu"], sc)
+    got = {c: v.clone() for c, v in st.items()}
+    fused_adam_cuda_(g, got["master"], got["mu"], got["nu"], sc)
+    err = max(float((got[c] - want[c]).abs().max()) for c in st)
+    check(err == 0.0, f"fused AdamW differs from its plain version: {err}")
+    del want
+    ms = time_ms(lambda: fused_adam_cuda_(g, got["master"], got["mu"],
+                                          got["nu"], sc), 10)
+    plain = time_ms(lambda: ref.adam_flat_reference(
+        g, st["master"], st["mu"], st["nu"], sc), 3)
+    steps = [torch.tensor(3.0, device="cuda")]
+    lib = time_ms(lambda: torch._fused_adamw_(
+        [got["master"]], [g], [got["mu"]], [got["nu"]], [], steps,
+        lr=cfg.lr, beta1=cfg.b1, beta2=cfg.b2, weight_decay=cfg.weight_decay,
+        eps=cfg.eps, amsgrad=False, maximize=False), 10)
+    b, by = bound(28 * n, 12 * n, torch.float32)
+    log(f"fused_adam n={n}: ms {ms:.3f} plain_ms {plain:.3f} "
+        f"library_ms {lib:.3f} bound_ms {b:.3f} ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                bound_by=by, library_ms=lib)
+
+
+def phase_tiny_twin() -> None:
+    cfg = tiny_config("dense")
+    kw = dict(global_batch=8, num_micro=2, seq_len=16)
+    cpu = VirtualCluster(cfg, 2, 2, device="cpu", **kw)
+    init = params_to_numpy(cpu.stem, cpu.layer_params, cpu.head)
+    gpu = VirtualCluster(cfg, 2, 2, device="cuda", init_params=init, **kw)
+    for step in range(3):
+        a, b = gpu.train_step(), cpu.train_step()
+        check(abs(a - b) <= LOSS_ATOL + LOSS_RTOL * abs(b),
+              f"tiny twin step {step}: loss {a!r} vs cpu {b!r}")
+        atol = PARAM_ATOL0 + 2.0 * gpu.adam.lr * gpu.opt_step
+        worst = 0.0
+        for sg, sc in zip(gpu.stages, cpu.stages):
+            check(sg.sizes == sc.sizes and sg.entries == sc.entries,
+                  "tiny twin stage structure differs")
+            for c in ("master", "mu", "nu"):
+                x, y = sg.full(c).cpu(), sc.full(c)
+                check(torch.allclose(x, y, rtol=PARAM_RTOL, atol=atol),
+                      f"tiny twin step {step}: stage {c} beyond bounds")
+                worst = max(worst, float((x - y).abs().max()))
+        log(f"tiny twin step {step}: loss card {a:.7f} cpu {b:.7f} "
+            f"state max_abs_diff {worst:.3e} (atol {atol:.1e})")
+
+
+def snapshot_matches_device(cl: VirtualCluster) -> bool:
+    for st, pool in zip(cl.stages, cl.snapshots):
+        for c in ("master", "mu", "nu"):
+            shards = st.table.split(st.flat[c].cpu().numpy())
+            for i in range(pool.n):
+                if not np.array_equal(pool.host[i][c],
+                                      shards[pool.backup_rank(i)]):
+                    return False
+    return True
+
+
+def phase_full_width() -> dict:
+    cfg = dataclasses.replace(codeqwen1p5_7b.config(), num_layers=2)
+    t0 = time.perf_counter()
+    cl = VirtualCluster(cfg, 2, 2, global_batch=4, num_micro=2, seq_len=4096,
+                        device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in cl._leaves)
+    log(f"codeqwen1.5-7b (2 layers, dp=2, pp=2, seq 4096, {cfg.dtype}): "
+        f"{n_params} params, stage sizes {[s.total for s in cl.stages]}, "
+        f"set-up {time.perf_counter() - t0:.1f} s")
+    check(snapshot_matches_device(cl), "bootstrap snapshot != device state")
+    _build.reset_launch_counts()
+    for step in range(3):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = cl.train_step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        snap = cl.snapshot_seconds[-1]
+        log(f"step {step}: loss {loss:.6f} step_s {dt:.3f} "
+            f"snapshot_s {snap:.3f} (share {snap / dt:.3f}) "
+            f"peak_mem_GB {torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        check(math.isfinite(loss), f"step {step}: loss not finite")
+        check(snapshot_matches_device(cl),
+              f"step {step}: host ring snapshot != device shards")
+    launches = dict(_build.LAUNCHES)
+    log(f"launches over 3 steps: {launches}")
+    want = {"rmsnorm": 60, "flash_attention": 24, "fused_adam": 6}
+    check(launches == want, f"launch counts {launches} != {want}")
+    return launches
+
+
+def main() -> None:
+    card = phase_device()
+    phase_build()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    recs = {"rmsnorm": kernel_rmsnorm(gen),
+            "flash_attention": kernel_flash(gen)}
+    cfg = codeqwen1p5_7b.config()
+    # the larger stage of the full-width phase: one layer + the head
+    stage = cfg._block_params("attn") + cfg.d_model * cfg.vocab_size \
+        + cfg.d_model
+    recs["fused_adam"] = kernel_adam(gen, stage)
+    torch.cuda.empty_cache()
+    phase_tiny_twin()
+    launches = phase_full_width()
+    kernels = [dict(name=name, route="cuda", source=SOURCES[name][0],
+                    replaces=SOURCES[name][1], launches=launches[name],
+                    **recs[name]) for name in SOURCES]
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
