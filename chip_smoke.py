@@ -8,20 +8,26 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. device: the card's name and power limit (``nvidia-smi``); no card, exit 1;
 2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc);
 3. every kernel against its plain PyTorch version on the card at the main
-   path's shapes (rmsnorm [4096, 4096]; flash attention [1, 4096, 32, 128]
-   causal, MHA and GQA; fused AdamW bitwise against the numpy oracle), with
-   kernel, plain-version and library-call times;
-4. a tiny dense cluster on the card against the same cluster on the CPU, for
-   3 steps, within the reference's kernel-consistency bounds;
-5. the main path: ``VirtualCluster.train_step`` on codeqwen1.5-7b at its
-   published widths and dtype, depth cut to 2 layers, dp=2, pp=2, seq 4096,
-   for 3 steps, with exact kernel launch counts and the host ring snapshot
-   bitwise equal to the device shards after every step;
-6. a JSON line with every kernel's numbers, then the result line.
+   paths' shapes (rmsnorm [4096, 4096]; flash attention [1, 4096, 32, 128]
+   causal, MHA and GQA; fused AdamW bitwise against the numpy oracle; the
+   SSD scan at [1, 4096, 80, 64] with n 128, chunk 256, against the
+   sequential oracle in bf16 and fp32, with order-1 and small step sizes,
+   and with 8 groups, its fp32 cases also against the oracle in float64),
+   with kernel, plain-version and library-call times;
+4. a tiny dense and a tiny ssm cluster on the card against the same
+   clusters on the CPU, for 3 steps each, within the reference's
+   kernel-consistency bounds;
+5. the dense main path: ``VirtualCluster.train_step`` on codeqwen1.5-7b at
+   its published widths and dtype, depth cut to 2 layers, dp=2, pp=2, seq
+   4096, for 3 steps, with exact kernel launch counts and the host ring
+   snapshot bitwise equal to the device shards after every step;
+6. the ssm main path: the same on mamba2-2.7b, depth cut to 4 layers;
+7. a JSON line with every kernel's numbers, then the result line.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -35,12 +41,13 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import codeqwen1p5_7b  # noqa: E402
+from repro_torch.configs import codeqwen1p5_7b, mamba2_2p7b  # noqa: E402
 from repro_torch.core.cluster import VirtualCluster  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.fused_adam import fused_adam_cuda_  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda  # noqa: E402
 from repro_torch.models.registry import tiny_config  # noqa: E402
 from repro_torch.optim.adam import AdamConfig, adam_update_flat_np  # noqa: E402
 from repro_torch.weights import params_to_numpy  # noqa: E402
@@ -58,7 +65,14 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:78"),
     "fused_adam": ("src/repro_torch/kernels/csrc/fused_adam.cu",
                    "src/repro/kernels/fused_adam.py:52"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:78"),
 }
+# exact launches over 3 steps of each main path (4 items a step)
+DENSE_LAUNCHES = {"rmsnorm": 60, "flash_attention": 24, "fused_adam": 6,
+                  "ssd_scan": 0}
+SSM_LAUNCHES = {"rmsnorm": 108, "flash_attention": 0, "fused_adam": 6,
+                "ssd_scan": 48}
 
 
 def log(msg: str) -> None:
@@ -236,8 +250,100 @@ def kernel_adam(gen, stage_elems: int) -> dict:
                 bound_by=by, library_ms=lib)
 
 
-def phase_tiny_twin() -> None:
-    cfg = tiny_config("dense")
+def kernel_ssd(gen) -> dict:
+    """The SSD scan at mamba2-2.7b's widths, x, B and C as views of one
+    activation as in the model.  Two step-size regimes: dt of order 1 with
+    the init's A (the state decays within a chunk), and dt in [1e-3, 1e-1]
+    with |A| <= 1 (the state carries across all 16 chunks).
+
+    The gate is the tier against the float32 oracle on silu-activated x, B
+    and C, the main path's inputs (``apply_mamba`` applies silu to xBC
+    before the scan).  Every float32 case also meets a float64 witness:
+    the oracle in float64 on the same inputs, with the error held to the
+    ``ssd_scan`` tier scaled by the sum of the magnitudes of y's terms (the
+    oracle on |x|, |B|, |C|), which is what float32 rounding scales with.
+    Signed normal inputs, as the reference's kernel corpus uses, cancel to
+    y ~ 0 where those terms reach hundreds; there no float32 summation
+    meets the elementwise tier, so they are held to the witness alone and
+    their elementwise misses are printed."""
+    b, s, h, p, n, chunk = 1, 4096, 80, 64, 128, 256
+    rec = {}
+    for dtype, g, regime, act in ((torch.bfloat16, 1, "typical", "silu"),
+                                  (torch.bfloat16, 1, "carried", "silu"),
+                                  (torch.bfloat16, 8, "typical", "silu"),
+                                  (torch.float32, 1, "typical", "silu"),
+                                  (torch.float32, 1, "carried", "silu"),
+                                  (torch.float32, 8, "carried", "silu"),
+                                  (torch.float32, 1, "typical", "signed"),
+                                  (torch.float32, 8, "carried", "signed")):
+        tier_name = "ssd_scan" if dtype == torch.float32 else "ssd_scan_bf16"
+        tier = ops.TOLERANCE_TIERS[tier_name]
+        xBC = torch.randn(b, s, h * p + 2 * g * n, generator=gen,
+                          device="cuda")
+        xBC = (F.silu(xBC) if act == "silu" else xBC).to(dtype)
+        x = xBC[..., :h * p].reshape(b, s, h, p)
+        B = xBC[..., h * p:h * p + g * n].reshape(b, s, g, n)
+        C = xBC[..., h * p + g * n:].reshape(b, s, g, n)
+        if regime == "typical":
+            dt = F.softplus(torch.randn(b, s, h, generator=gen,
+                                        device="cuda"))
+            A = -torch.linspace(1.0, 16.0, h, device="cuda")
+        else:
+            dt = 1e-3 + (1e-1 - 1e-3) * torch.rand(b, s, h, generator=gen,
+                                                   device="cuda")
+            A = -(0.05 + 0.95 * torch.rand(h, generator=gen, device="cuda"))
+        y = ssd_scan_cuda(x, dt, A, B, C, chunk)
+        Bh, Ch = (t.repeat_interleave(h // g, dim=2) for t in (B, C))
+        want = ref.ssd_reference(x, dt, A, Bh, Ch)[0]
+        ok, err = within(y, want, tier)
+        name = f"ssd_scan {dtype} g={g} {regime} {act}"
+        log(f"{name}: max_abs_err {err:.3e} (max |y| "
+            f"{float(want.float().abs().max()):.2f}) tier {tier_name} "
+            f"ok={ok}")
+        if act == "silu":
+            check(ok, f"{name} outside {tier_name}")
+        if dtype == torch.float32:
+            d = [t.double() for t in (x, dt, A, Bh, Ch)]
+            y64 = ref.ssd_reference(*d)[0]
+            terms = ref.ssd_reference(d[0].abs(), d[1], d[2], d[3].abs(),
+                                      d[4].abs())[0]
+            worst = {}
+            for who, got in (("kernel", y), ("oracle", want)):
+                e = (got.double() - y64).abs()
+                worst[who] = float((e / terms.clamp_min(1e-300)).max())
+                miss = int((e > tier["atol"] + tier["rtol"] * y64.abs())
+                           .sum())
+                log(f"  {who} vs float64: max_abs_err {float(e.max()):.3e}, "
+                    f"{miss} elements outside {tier_name}, max err / "
+                    f"sum|terms| {worst[who]:.3e}")
+                if who == "kernel":
+                    check(bool((e <= tier["atol"] + tier["rtol"] * terms)
+                               .all()),
+                          f"{name}: beyond {tier_name} of sum|terms| "
+                          f"against float64")
+            del d, y64, terms, e
+        if dtype == torch.bfloat16 and g == 1 and regime == "typical":
+            # the main path's case.  Bound: x, B, C, dt, A read once, y
+            # written once; the causal pairs i >= j of each chunk for C B^T
+            # and M x, plus the entering-state term and the state update
+            ms = time_ms(lambda: ssd_scan_cuda(x, dt, A, B, C, chunk), 10)
+            nc, es = s // chunk, x.element_size()
+            nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * es \
+                + 4 * (b * s * h + h)
+            flops = b * h * nc * (chunk * (chunk + 1) * (n + p)
+                                  + 4 * chunk * p * n)
+            bnd, by = bound(nbytes, flops, dtype)
+            plain = time_ms(lambda: ref.ssd_reference(x, dt, A, Bh, Ch), 1)
+            log(f"  ms {ms:.3f} plain_ms {plain:.3f} bound_ms {bnd:.4f} "
+                f"({by}); library: no single PyTorch call")
+            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                       bound_by=by, library_ms=None)
+        del xBC, x, B, C, Bh, Ch, y, want
+    return rec
+
+
+def phase_tiny_twin(family: str) -> None:
+    cfg = tiny_config(family)
     kw = dict(global_batch=8, num_micro=2, seq_len=16)
     cpu = VirtualCluster(cfg, 2, 2, device="cpu", **kw)
     init = params_to_numpy(cpu.stem, cpu.layer_params, cpu.head)
@@ -245,18 +351,19 @@ def phase_tiny_twin() -> None:
     for step in range(3):
         a, b = gpu.train_step(), cpu.train_step()
         check(abs(a - b) <= LOSS_ATOL + LOSS_RTOL * abs(b),
-              f"tiny twin step {step}: loss {a!r} vs cpu {b!r}")
+              f"tiny {family} twin step {step}: loss {a!r} vs cpu {b!r}")
         atol = PARAM_ATOL0 + 2.0 * gpu.adam.lr * gpu.opt_step
         worst = 0.0
         for sg, sc in zip(gpu.stages, cpu.stages):
             check(sg.sizes == sc.sizes and sg.entries == sc.entries,
-                  "tiny twin stage structure differs")
+                  f"tiny {family} twin stage structure differs")
             for c in ("master", "mu", "nu"):
                 x, y = sg.full(c).cpu(), sc.full(c)
                 check(torch.allclose(x, y, rtol=PARAM_RTOL, atol=atol),
-                      f"tiny twin step {step}: stage {c} beyond bounds")
+                      f"tiny {family} twin step {step}: stage {c} beyond "
+                      f"bounds")
                 worst = max(worst, float((x - y).abs().max()))
-        log(f"tiny twin step {step}: loss card {a:.7f} cpu {b:.7f} "
+        log(f"tiny {family} twin step {step}: loss card {a:.7f} cpu {b:.7f} "
             f"state max_abs_diff {worst:.3e} (atol {atol:.1e})")
 
 
@@ -271,15 +378,17 @@ def snapshot_matches_device(cl: VirtualCluster) -> bool:
     return True
 
 
-def phase_full_width() -> dict:
-    cfg = dataclasses.replace(codeqwen1p5_7b.config(), num_layers=2)
+def phase_train(cfg, want: dict) -> dict:
+    """3 steps of ``VirtualCluster.train_step`` at dp=2, pp=2, global batch
+    4 in 2 micro-batches, seq 4096, random weights from seed 1."""
     t0 = time.perf_counter()
     cl = VirtualCluster(cfg, 2, 2, global_batch=4, num_micro=2, seq_len=4096,
                         device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in cl._leaves)
-    log(f"codeqwen1.5-7b (2 layers, dp=2, pp=2, seq 4096, {cfg.dtype}): "
-        f"{n_params} params, stage sizes {[s.total for s in cl.stages]}, "
+    log(f"{cfg.name} ({cfg.num_layers} layers, dp=2, pp=2, seq 4096, "
+        f"{cfg.dtype}): {n_params} params, stage sizes "
+        f"{[s.total for s in cl.stages]}, "
         f"set-up {time.perf_counter() - t0:.1f} s")
     check(snapshot_matches_device(cl), "bootstrap snapshot != device state")
     _build.reset_launch_counts()
@@ -298,7 +407,6 @@ def phase_full_width() -> dict:
               f"step {step}: host ring snapshot != device shards")
     launches = dict(_build.LAUNCHES)
     log(f"launches over 3 steps: {launches}")
-    want = {"rmsnorm": 60, "flash_attention": 24, "fused_adam": 6}
     check(launches == want, f"launch counts {launches} != {want}")
     return launches
 
@@ -306,19 +414,29 @@ def phase_full_width() -> dict:
 def main() -> None:
     card = phase_device()
     phase_build()
+    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     recs = {"rmsnorm": kernel_rmsnorm(gen),
             "flash_attention": kernel_flash(gen)}
     cfg = codeqwen1p5_7b.config()
-    # the larger stage of the full-width phase: one layer + the head
+    # the larger stage of the dense phase: one layer + the head
     stage = cfg._block_params("attn") + cfg.d_model * cfg.vocab_size \
         + cfg.d_model
     recs["fused_adam"] = kernel_adam(gen, stage)
+    recs["ssd_scan"] = kernel_ssd(gen)
     torch.cuda.empty_cache()
-    phase_tiny_twin()
-    launches = phase_full_width()
+    phase_tiny_twin("dense")
+    phase_tiny_twin("ssm")
+    paths = {"codeqwen1.5-7b": phase_train(
+        dataclasses.replace(cfg, num_layers=2), DENSE_LAUNCHES)}
+    gc.collect()                 # free the dense cluster's host and card state
+    torch.cuda.empty_cache()
+    paths["mamba2-2.7b"] = phase_train(
+        dataclasses.replace(mamba2_2p7b.config(), num_layers=4), SSM_LAUNCHES)
     kernels = [dict(name=name, route="cuda", source=SOURCES[name][0],
-                    replaces=SOURCES[name][1], launches=launches[name],
+                    replaces=SOURCES[name][1],
+                    launches=sum(p[name] for p in paths.values()),
+                    launches_by_path={k: p[name] for k, p in paths.items()},
                     **recs[name]) for name in SOURCES]
     log(card)
     log(json.dumps({"kernels": kernels}))

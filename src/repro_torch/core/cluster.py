@@ -1,7 +1,9 @@
 """VirtualCluster — the elastic train step of ElasWave, in PyTorch.
 
 An in-process cluster of virtual workers arranged as a DP x PP grid, mirroring
-the fast path of ``repro.core.cluster.VirtualCluster``:
+the fast path of ``repro.core.cluster.VirtualCluster``, for the families the
+port runs (dense attention blocks and Mamba2 blocks; it reaches them through
+``models/registry.py``):
 
 * per-layer parameters owned by pipeline stages (dicts of tensors);
 * ZeRO-1 optimizer shards per (stage, dp-rank) under contiguous or

@@ -40,10 +40,12 @@ SIGNATURES = {
                               _I, _F, _I, _P],
     "repro_fused_adam": [_P, _P, _P, _P, _LL, _F, _F, _F, _F, _F, _F, _F, _F,
                          _F, _P],
+    "repro_ssd_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       *[_LL] * 12, _I, _P],
 }
 #: kernel launches by kernel name, added to only by :func:`launch`
 LAUNCHES: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
-                            "fused_adam": 0}
+                            "fused_adam": 0, "ssd_scan": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 last_build_seconds: float = 0.0

@@ -9,6 +9,12 @@ Each differentiable kernel sits in a ``torch.autograd.Function`` that mirrors
 the reference's ``jax.custom_vjp`` (``repro/kernels/ops.py``): the forward
 is the kernel, the backward is autograd of the plain version at the saved
 inputs.  The TPU kernels have no backward kernel, so none is written here.
+The SSD scan's backward differentiates the chunked plain version
+``ref.ssd_chunked`` in float32 rather than the sequential oracle the
+reference differentiates: the two are the same function, but at seq 4096
+autograd through the oracle's loop would keep every step's [b, h, p, n]
+state (10.7 GB per call at mamba2-2.7b's widths) and launch tens of
+thousands of small kernels.
 
 Tolerance tiers
 ---------------
@@ -17,7 +23,9 @@ version (other reduction order, online-softmax rescaling).  Each kernel
 declares its tier here; the float32 tiers are the reference's.  The bf16
 tiers cover one rounding of the float32 result to bfloat16, whose relative
 spacing is at most 2**-7 (7.8e-3): the kernel and the plain version may land
-on neighbouring values.  Fused AdamW is held bitwise, not by its tier.
+on neighbouring values.  ``ssd_scan_bf16`` is the same: the kernel and the
+oracle both compute in float32 from the same bf16 inputs and round once.
+Fused AdamW is held bitwise, not by its tier.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from . import ref
 from .flash_attention import flash_attention_cuda
 from .fused_adam import fused_adam_cuda_
 from .rmsnorm import rmsnorm_cuda
+from .ssd_scan import ssd_scan_cuda
 
 #: Declared per-kernel tolerance vs the ``ref.py`` plain versions.
 TOLERANCE_TIERS = {
@@ -39,6 +48,7 @@ TOLERANCE_TIERS = {
     "fused_adam": {"rtol": 1e-6, "atol": 1e-7},
     "flash_attention_bf16": {"rtol": 1e-2, "atol": 1e-4},
     "rmsnorm_bf16": {"rtol": 1e-2, "atol": 1e-5},
+    "ssd_scan_bf16": {"rtol": 1e-2, "atol": 1e-5},
 }
 
 
@@ -93,6 +103,58 @@ class _FlashAttention(torch.autograd.Function):
             grads = iter(torch.autograd.grad(o, wrt, g))
         return tuple(next(grads) if need else None
                      for need in ctx.needs_input_grad[:3]) + (None,)
+
+
+class _SSDScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.save_for_backward(x, dt, A, B, C)      # B, C at group level
+        ctx.chunk = chunk
+        if on_card(x):
+            return ssd_scan_cuda(x, dt, A, B, C, chunk)
+        rep = x.shape[2] // B.shape[2]
+        return ref.ssd_reference(x, dt, A, B.repeat_interleave(rep, dim=2),
+                                 C.repeat_interleave(rep, dim=2))[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            ins = [t.detach().float().requires_grad_(need)
+                   for t, need in zip(saved, needs)]
+            y, _ = ref.ssd_chunked(*ins, ctx.chunk)
+            wrt = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wrt, g.float()))
+        return tuple(next(grads).to(t.dtype) if need else None
+                     for t, need in zip(saved, needs)) + (None,)
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, initial_state=None):
+    """Mamba2 SSD, model-layer layout: x [b,s,h,p], dt [b,s,h], A [h],
+    B, C [b,s,g,n] (groups).  Returns ``(y, None)``, in the place of
+    ``ref.ssd_chunked``'s ``(y, final_state)``: no final state.
+
+    Scans from a zero state (the training path): a non-``None`` state
+    raises, as does ``s % min(chunk, s) != 0``, which the TPU kernel
+    asserts."""
+    if initial_state is not None:
+        raise ValueError(
+            "ssd_scan: initial_state is not supported by the kernel (it "
+            "always scans from a zero state); pass initial_state=None or use "
+            "ref.ssd_chunked for the resume-from-state (prefill/decode) path")
+    b, s, h, p = x.shape
+    g = B.shape[2]
+    if g <= 0 or h % g != 0:
+        raise ValueError(
+            f"ssd_scan: num_heads h={h} is not a multiple of ngroups g={g} "
+            f"— the group broadcast repeats each B/C group h//g times and "
+            f"requires h % g == 0")
+    chunk = min(chunk, s)
+    if s % chunk != 0:
+        raise ValueError(f"ssd_scan: seq len s={s} is not a multiple of "
+                         f"chunk={chunk}")
+    return _SSDScan.apply(x, dt, A, B, C, chunk), None
 
 
 def flash_attention(q, k, v, *, causal: bool = True):

@@ -9,6 +9,7 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
 
 def mha_reference(q, k, v, *, causal: bool = True, sm_scale=None):
@@ -43,6 +44,104 @@ def rmsnorm_reference(x, scale, eps: float = 1e-5):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def ssd_reference(x, dt, A, Bh, Ch, initial_state=None):
+    """Sequential (recurrent) SSD oracle, O(S), exact in float32.
+
+    x: [b,s,h,p]; dt: [b,s,h]; A: [h]; Bh, Ch: [b,s,h,n] (groups already
+    broadcast to heads).  The state is float32 (float64 when every operand
+    is float64, a second witness for the float32 versions); y is cast to
+    x's dtype.  Returns (y [b,s,h,p], final_state [b,h,p,n])."""
+    b, s, h, p = x.shape
+    n = Bh.shape[-1]
+    acc = torch.float64 if all(t.dtype == torch.float64
+                               for t in (x, dt, A, Bh, Ch)) else torch.float32
+    state = torch.zeros((b, h, p, n), dtype=acc, device=x.device) \
+        if initial_state is None else initial_state.to(acc)
+    dt, A = dt.to(acc), A.to(acc)
+    ys = []
+    for t in range(s):
+        dA = torch.exp(dt[:, t] * A[None, :])                     # [b,h]
+        upd = torch.einsum("bh,bhp,bhn->bhpn", dt[:, t], x[:, t].to(acc),
+                           Bh[:, t].to(acc))
+        state = dA[:, :, None, None] * state + upd
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, Ch[:, t].to(acc)))
+    return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None):
+    """Chunked SSD scan (Mamba2 algorithm 3), the plain tensor form of the
+    SSD kernel; ``ops.ssd_scan``'s backward differentiates it.
+
+    x: [b,s,h,p]; dt: [b,s,h] (softplus-activated, >= 0); A: [h] (< 0);
+    B, C: [b,s,g,n] (g groups broadcast over heads).  A ragged tail is
+    zero-padded (dt = 0: no state update; padded y dropped).  As in the
+    reference, CB, y_intra and y_inter are taken in the inputs' dtype and
+    the carried chunk states in float32.
+
+    One departure from the reference's arithmetic: the decay exponents
+    sum_{j<k<=i} dt_k A are summed over their own segment (Mamba2's
+    ``segsum``), not taken as cum_i - cum_j.  With dt ~ 1 and |A| up to 16
+    the float32 cumsum reaches ~-3e3 late in a 256-row chunk, and the
+    difference of two such sums keeps only ~1e-4 relative precision.
+    Returns (y [b,s,h,p], final_state [b,h,p,n])."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    pad = (-s) % chunk
+    s_orig = s
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+        s = s + pad
+    nc = s // chunk
+    rep = h // g
+    xc = x.reshape(b, nc, chunk, h, p)
+    dtc = dt.reshape(b, nc, chunk, h)
+    Bh = B.reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3)
+    Ch = C.reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3)
+
+    dA = (dtc * A).permute(0, 1, 3, 2)                       # [b,nc,h,c] <= 0
+    cum = torch.cumsum(dA, dim=-1)
+    seg_total = cum[..., -1]                                 # [b,nc,h]
+
+    # intra-chunk: L[i,j] = exp(sum_{j<k<=i} dA_k) for i >= j.  Mask before
+    # exp: the upper triangle would be positive and overflow (NaN grads).
+    ones = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device)
+    seg = torch.where(ones.tril(-1), dA[..., :, None],
+                      torch.zeros((), dtype=dA.dtype, device=x.device))
+    seg = torch.cumsum(seg, dim=-2)                          # [b,nc,h,c,c]
+    L = torch.exp(torch.where(ones.tril(), seg,
+                              torch.full_like(seg, -1e30)))
+    CB = torch.einsum("bzchn,bzkhn->bzhck", Ch, Bh)          # [b,nc,h,c,c]
+    xdt = xc * dtc[..., None]                                # [b,nc,c,h,p]
+    y_intra = torch.einsum("bzhck,bzkhp->bzchp", CB * L.to(CB.dtype),
+                           xdt.to(CB.dtype))
+
+    # chunk states, float32 for the carried recurrence
+    decay_to_end = torch.exp(seg[..., -1, :]).transpose(2, 3)  # [b,nc,c,h]
+    states = torch.einsum("bzchn,bzchp->bzhpn",
+                          Bh.float() * (dtc * decay_to_end).float()[..., None],
+                          xc.float())                         # [b,nc,h,p,n]
+    seg_decay = torch.exp(seg_total)                          # [b,nc,h]
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device) \
+        if initial_state is None else initial_state.float()
+    entry = []                                  # state entering each chunk
+    for z in range(nc):
+        entry.append(state)
+        state = states[:, z] + seg_decay[:, z, :, None, None] * state
+    entry_states = torch.stack(entry, dim=1)                  # [b,nc,h,p,n]
+
+    # contribution of the entering state
+    y_inter = torch.einsum("bzchn,bzhpn->bzchp", Ch,
+                           entry_states.to(Ch.dtype)) \
+        * torch.exp(cum).transpose(2, 3).to(Ch.dtype)[..., None]
+    y = (y_intra + y_inter).reshape(b, s, h, p)
+    if pad:
+        y = y[:, :s_orig]
+    return y, state
 
 
 def adam_flat_reference(grad: torch.Tensor, master: torch.Tensor,

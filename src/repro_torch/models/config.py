@@ -4,8 +4,8 @@ A copy of ``repro.models.config`` (the JAX package) with a ``torch_dtype``
 property in place of ``jnp_dtype``.  One dataclass describes dense / MoE /
 SSM / hybrid / enc-dec / VLM-backbone transformers; a config is compiled into
 a sequence of *segments* (pattern of block types, repeated).  The port runs
-the dense family so far; the other fields are kept so that configs stay
-field-for-field equal to the reference's.
+the dense and ssm families so far; the other fields are kept so that configs
+stay field-for-field equal to the reference's.
 """
 from __future__ import annotations
 

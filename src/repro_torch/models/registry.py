@@ -53,11 +53,15 @@ def apply_head(params, cfg: ModelConfig, x):
 
 
 def tiny_config(family: str = "dense", **kw) -> ModelConfig:
-    """Reduced config of a family for CPU tests (the port runs "dense")."""
+    """Reduced config of a family for CPU tests (the port runs "dense" and
+    "ssm")."""
     base = dict(name=f"tiny-{family}", family=family, num_layers=4, d_model=64,
                 num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=256,
                 rope_theta=10000.0, dtype="float32")
-    if family != "dense":
+    if family == "ssm":
+        base.update(num_heads=0, num_kv_heads=0, d_ff=0, ssm_state=16,
+                    ssm_headdim=16, ssm_chunk=8)
+    elif family != "dense":
         raise NotImplementedError(f"family {family!r} is not ported yet")
     base.update(kw)
     return ModelConfig(**base)

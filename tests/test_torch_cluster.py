@@ -28,10 +28,11 @@ def _np(tree):
 
 @pytest.mark.parametrize("use_pallas", [True, False])
 @pytest.mark.parametrize("layout", ["interleaved", "contiguous"])
-def test_train_step_twin_vs_reference(layout, use_pallas):
-    ref = JCluster(j_tiny("dense"), 2, 2, zero_layout=layout,
+@pytest.mark.parametrize("family", ["dense", "ssm"])
+def test_train_step_twin_vs_reference(family, layout, use_pallas):
+    ref = JCluster(j_tiny(family), 2, 2, zero_layout=layout,
                    use_pallas=use_pallas, **KW)
-    cl = VirtualCluster(tiny_config("dense"), 2, 2, zero_layout=layout,
+    cl = VirtualCluster(tiny_config(family), 2, 2, zero_layout=layout,
                         device="cpu", init_params=(
                             _np(ref.stem), _np(ref.layer_params),
                             _np(ref.head)), **KW)
@@ -90,3 +91,14 @@ def test_unported_options_and_recovery_raise():
     for name in ("recover_fail_stop", "recover_scale_out", "drain_rank"):
         with pytest.raises(NotImplementedError, match="recovery"):
             getattr(cl, name)(0, 1)
+    # the ssm family trains; its decode and prefill-with-state branches
+    # wait for the serving slice
+    from repro_torch.models.mamba import apply_mamba
+    ssm = VirtualCluster(tiny_config("ssm", num_layers=2), 2, 2,
+                         device="cpu", **KW)
+    p = ssm.layer_params[0]["mamba"]
+    state = {"ssm": None, "conv": None}
+    for seq in (1, 8):              # single-token decode, prefill-with-state
+        with pytest.raises(NotImplementedError, match="serving slice"):
+            apply_mamba(p, ssm.cfg, torch.zeros(1, seq, ssm.cfg.d_model),
+                        state=state)

@@ -58,7 +58,8 @@ def _fake_card(monkeypatch):
         raise AssertionError("plain version reached for a CUDA tensor")
 
     for name in ("rmsnorm_reference", "gqa_attention_reference",
-                 "mha_reference", "adam_flat_reference"):
+                 "mha_reference", "adam_flat_reference", "ssd_reference",
+                 "ssd_chunked"):
         monkeypatch.setattr(ref, name, plain)
     monkeypatch.setattr(ops, "rmsnorm_cuda",
                         lambda x, s, eps: calls.append("rmsnorm") or x)
@@ -66,6 +67,8 @@ def _fake_card(monkeypatch):
                         lambda q, k, v, c: calls.append("flash") or q)
     monkeypatch.setattr(ops, "fused_adam_cuda_",
                         lambda *a: calls.append("adam"))
+    monkeypatch.setattr(ops, "ssd_scan_cuda",
+                        lambda x, *a: calls.append("ssd") or x)
     return calls
 
 
@@ -76,7 +79,9 @@ def test_wrappers_never_give_a_cuda_tensor_to_the_plain_version(monkeypatch):
     ops.flash_attention(x, x[:, :, :2], x[:, :, :2])
     v = torch.zeros(5)
     ops.fused_adam_(v, v.clone(), v.clone(), v.clone(), step=1)
-    assert calls == ["rmsnorm", "flash", "adam"]
+    ops.ssd_scan(x, torch.ones(2, 8, 4), -torch.ones(4), x[:, :, :1],
+                 x[:, :, :1], chunk=4)
+    assert calls == ["rmsnorm", "flash", "adam", "ssd"]
 
 
 def test_other_devices_raise():
