@@ -6,21 +6,28 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. device: the card's name and power limit (``nvidia-smi``); no card, exit 1;
-2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc);
+2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc),
+   and the tensor-core flash kernel's SASS (``cuobjdump``) checked for
+   HGMMA in both forms and UTMALDG;
 3. every kernel against its plain PyTorch version on the card at the main
    paths' shapes (rmsnorm [4096, 4096]; flash attention [1, 4096, 32, 128]
-   causal, MHA and GQA; fused AdamW bitwise against the numpy oracle; the
-   SSD scan at [1, 4096, 80, 64] with n 128, chunk 256, against the
-   sequential oracle in bf16 and fp32, with order-1 and small step sizes,
-   and with 8 groups, its fp32 cases also against the oracle in float64),
-   with kernel, plain-version and library-call times;
+   causal on both routes: float32, and bf16 at head_dim 32, on the CUDA
+   cores; bf16 on the tensor cores MHA and GQA, plus head_dim 64, ragged S
+   4000, bidirectional, a peaked softmax and strided projection views; fused AdamW bitwise
+   against the numpy oracle over 3 steps, at n % 4 != 0 and on views off a
+   16-byte boundary; the SSD scan at [1, 4096, 80, 64] with n 128, chunk
+   256, against the sequential oracle in bf16 and fp32, with order-1 and
+   small step sizes, and with 8 groups, its fp32 cases also against the
+   oracle in float64), with kernel, plain-version and library-call times;
 4. a tiny dense and a tiny ssm cluster on the card against the same
    clusters on the CPU, for 3 steps each, within the reference's
-   kernel-consistency bounds;
+   kernel-consistency bounds (the dense twin, float32 at head_dim 16,
+   must take the CUDA-core flash route only);
 5. the dense main path: ``VirtualCluster.train_step`` on codeqwen1.5-7b at
    its published widths and dtype, depth cut to 2 layers, dp=2, pp=2, seq
-   4096, for 3 steps, with exact kernel launch counts and the host ring
-   snapshot bitwise equal to the device shards after every step;
+   4096, for 3 steps, with exact kernel launch counts (every flash launch
+   on the tensor-core route) and the host ring snapshot bitwise equal to
+   the device shards after every step;
 6. the ssm main path: the same on mamba2-2.7b, depth cut to 4 layers;
 7. a JSON line with every kernel's numbers, then the result line.
 """
@@ -30,6 +37,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -44,7 +52,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import codeqwen1p5_7b, mamba2_2p7b  # noqa: E402
 from repro_torch.core.cluster import VirtualCluster  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_cuda, uses_sm90)
 from repro_torch.kernels.fused_adam import fused_adam_cuda_  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda  # noqa: E402
@@ -61,6 +70,9 @@ LOSS_RTOL, LOSS_ATOL, PARAM_RTOL, PARAM_ATOL0 = 1e-4, 1e-6, 1e-4, 1e-5
 SOURCES = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:22"),
+    "flash_attention_sm90": (
+        "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+        "src/repro/kernels/flash_attention.py:78"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:78"),
     "fused_adam": ("src/repro_torch/kernels/csrc/fused_adam.cu",
@@ -68,11 +80,19 @@ SOURCES = {
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:78"),
 }
-# exact launches over 3 steps of each main path (4 items a step)
-DENSE_LAUNCHES = {"rmsnorm": 60, "flash_attention": 24, "fused_adam": 6,
-                  "ssd_scan": 0}
+DESIGNS = {
+    "flash_attention_sm90": "bf16, head_dim 64/128: wgmma m64n128k16 for "
+                            "Q.K^T and register-A wgmma for P.V (P as bf16 "
+                            "hi + lo), K/V by TMA in a 2-stage mbarrier ring",
+    "flash_attention": "float32, and bf16 at head_dim 16/32: float32 FMAs on "
+                       "the CUDA cores",
+}
+# exact launches over 3 steps of each main path (4 items a step); every
+# flash launch of the bf16 models takes the tensor-core kernel
+DENSE_LAUNCHES = {"rmsnorm": 60, "flash_attention": 0, "fused_adam": 6,
+                  "ssd_scan": 0, "flash_attention_sm90": 24}
 SSM_LAUNCHES = {"rmsnorm": 108, "flash_attention": 0, "fused_adam": 6,
-                "ssd_scan": 48}
+                "ssd_scan": 48, "flash_attention_sm90": 0}
 
 
 def log(msg: str) -> None:
@@ -132,8 +152,38 @@ def phase_build() -> None:
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.last_build_seconds:.1f} s)")
     for line in _build.last_build_log.splitlines():
-        if "Compiling entry" in line or "Used" in line or "spill" in line:
+        if any(w in line for w in ("Compiling entry", "Used", "spill",
+                                   "arning")):
             log("  " + line.strip())
+    sass_check()
+
+
+def sass_check() -> None:
+    """The tensor-core flash kernel's machine code (``cuobjdump -sass`` of
+    the built library) must hold HGMMA for both products (shared-memory A
+    for Q.K^T, register A for P.V) and UTMALDG (TMA loads)."""
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.build())],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = {"HGMMA": 0, "HGMMA register A": 0, "UTMALDG": 0}
+            continue
+        hgmma = re.search(r"HGMMA\.\S+\s+[^,]+,\s*([^,\s]+)", line)
+        if fn is not None and hgmma:
+            counts[fn]["HGMMA"] += 1
+            counts[fn]["HGMMA register A"] += hgmma.group(1).startswith("R")
+        if fn is not None and "UTMALDG" in line:
+            counts[fn]["UTMALDG"] += 1
+    sm90 = {f: c for f, c in counts.items() if "flash_fwd_sm90_kernel" in f}
+    check(len(sm90) == 2, f"expected 2 tensor-core flash kernels in the "
+                          f"SASS, found {len(sm90)}")
+    for f, c in sm90.items():
+        log(f"  SASS {f[:90]}: {c}")
+        check(c["HGMMA"] > c["HGMMA register A"] > 0 and c["UTMALDG"] > 0,
+              f"{f}: HGMMA for both products and UTMALDG expected: {c}")
 
 
 def kernel_rmsnorm(gen) -> dict:
@@ -163,39 +213,71 @@ def kernel_rmsnorm(gen) -> dict:
 
 
 def kernel_flash(gen) -> dict:
+    """Flash attention at codeqwen's widths against the plain version under
+    the unchanged tiers: the CUDA-core route (float32, and bf16 at head_dim
+    32) and the tensor-core route (bf16: MHA as on the main path, GQA,
+    head_dim 64, ragged S, bidirectional, a peaked softmax, and q/k/v as
+    strided views of one fused projection).  Returns the records of both
+    kernels."""
     B, S, H, hd = 1, 4096, 32, 128
-    rec = {}
-    for dtype, Hkv in ((torch.float32, H), (torch.bfloat16, H),
-                       (torch.bfloat16, 8)):
+    recs = {}
+    cases = (  # dtype, S, Hkv, hd, causal, q scale, layout
+        (torch.float32, S, H, hd, True, 1.0, "dense"),
+        (torch.bfloat16, S, H, 32, True, 1.0, "dense"),
+        (torch.bfloat16, S, H, hd, True, 1.0, "dense"),
+        (torch.bfloat16, S, 8, hd, True, 1.0, "dense"),
+        (torch.bfloat16, S, H, 64, True, 1.0, "dense"),
+        (torch.bfloat16, 4000, H, hd, True, 1.0, "dense"),
+        (torch.bfloat16, S, H, hd, False, 1.0, "dense"),
+        (torch.bfloat16, S, H, hd, True, 4.0, "dense"),
+        (torch.bfloat16, S, 8, hd, True, 1.0, "projection"),
+    )
+    for dtype, s, Hkv, d, causal, qscale, layout in cases:
         tier = "flash_attention" if dtype == torch.float32 \
             else "flash_attention_bf16"
-        q = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dtype)
-        k = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype)
-        v = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype)
-        o = flash_attention_cuda(q, k, v, True)
-        ok, err = within(o, ref.gqa_attention_reference(q, k, v, causal=True),
-                         ops.TOLERANCE_TIERS[tier])
-        log(f"flash {dtype} H={H} Hkv={Hkv}: max_abs_err {err:.3e} "
-            f"tier {tier} ok={ok}")
-        check(ok, f"flash attention {dtype} Hkv={Hkv} outside {tier}")
-        ms = time_ms(lambda: flash_attention_cuda(q, k, v, True), 5)
+        if layout == "projection":   # one [B, S, (H + 2 Hkv) hd] activation
+            x = torch.randn(B, s, (H + 2 * Hkv) * d, generator=gen,
+                            device="cuda").to(dtype)
+            q = x[..., :H * d].unflatten(-1, (H, d))
+            k = x[..., H * d:(H + Hkv) * d].unflatten(-1, (Hkv, d))
+            v = x[..., (H + Hkv) * d:].unflatten(-1, (Hkv, d))
+        else:
+            q = (qscale * torch.randn(B, s, H, d, generator=gen,
+                                      device="cuda")).to(dtype)
+            k, v = (torch.randn(B, s, Hkv, d, generator=gen,
+                                device="cuda").to(dtype) for _ in "kv")
+        route = "sm90" if uses_sm90(dtype, d) else "cuda-cores"
+        name = (f"flash {route} {dtype} S={s} H={H} Hkv={Hkv} hd={d} "
+                f"causal={causal} q*{qscale:g} {layout}")
+        want = ref.gqa_attention_reference(q, k, v, causal=causal)
+        o = flash_attention_cuda(q, k, v, causal)
+        ok, err = within(o, want, ops.TOLERANCE_TIERS[tier])
+        log(f"{name}: max_abs_err {err:.3e} tier {tier} ok={ok}")
+        check(ok, f"{name} outside {tier}")
+        if layout != "dense" or s != S or d != hd or not causal \
+                or qscale != 1.0:
+            del q, k, v, o, want
+            continue
+        ms = time_ms(lambda: flash_attention_cuda(q, k, v, True), 50)
         plain = time_ms(lambda: ref.gqa_attention_reference(
             q, k, v, causal=True), 3)
         rep = H // Hkv
         qt, kt, vt = (t.transpose(1, 2) for t in (
             q, k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)))
         lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), 5)
+            qt, kt, vt, is_causal=True), 50)
         pairs = B * H * S * (S + 1) // 2
         nbytes = (2 * B * S * H * hd + 2 * B * S * Hkv * hd) * q.element_size()
         b, by = bound(nbytes, 4 * hd * pairs, dtype)
-        log(f"  ms {ms:.3f} plain_ms {plain:.3f} library_ms {lib:.3f} "
+        log(f"  ms {ms:.4f} plain_ms {plain:.3f} library_ms {lib:.4f} "
             f"bound_ms {b:.4f} ({by})")
-        if dtype == torch.bfloat16 and Hkv == H:     # codeqwen: bf16 MHA
-            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                       bound_by=by, library_ms=lib)
-        del q, k, v, o, qt, kt, vt
-    return rec
+        if Hkv == H:    # the main path's case of each route: MHA
+            recs["flash_attention_sm90" if route == "sm90"
+                 else "flash_attention"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                bound_by=by, library_ms=lib)
+        del q, k, v, o, want, qt, kt, vt
+    return recs
 
 
 def kernel_adam(gen, stage_elems: int) -> dict:
@@ -221,6 +303,31 @@ def kernel_adam(gen, stage_elems: int) -> dict:
     log(f"fused_adam: bitwise equal to adam_update_flat_np over 3 steps, "
         f"n={n}")
     del dev, host
+    # the float4 body's scalar head and tail: n % 4 != 0, views whose base
+    # sits 4 bytes past a 16-byte boundary (t[1:]), and a master alone off
+    # the others' alignment (the scalar loop); nothing outside a view moves
+    n = 10_000_019
+    for offs in ((0, 0, 0, 0), (1, 1, 1, 1), (0, 1, 0, 0)):
+        g = rs.standard_normal(n, dtype=np.float32) * np.float32(1e-2)
+        host = {"master": rs.standard_normal(n, dtype=np.float32),
+                "mu": rs.standard_normal(n, dtype=np.float32) * 1e-3,
+                "nu": np.abs(rs.standard_normal(n, dtype=np.float32)) * 1e-6}
+        bufs = [torch.zeros(n + 1, device="cuda") for _ in range(4)]
+        views = [b[o:o + n] for b, o in zip(bufs, offs)]
+        for t, x in zip(views, (g, host["master"], host["mu"], host["nu"])):
+            t.copy_(torch.from_numpy(x))
+        fused_adam_cuda_(*views, ops.adam_scalars(2, **hp))
+        want = adam_update_flat_np(g, host, 2, cfg)
+        for c, t in zip(("master", "mu", "nu"), views[1:]):
+            check(np.array_equal(t.cpu().numpy(), want[c]),
+                  f"fused AdamW {c} not bitwise equal at n={n}, view "
+                  f"offsets {offs}")
+        for b, o in zip(bufs, offs):
+            check(not bool(b[:o].any()) and not bool(b[o + n:].any()),
+                  f"fused AdamW wrote outside its views, offsets {offs}")
+        log(f"fused_adam: bitwise equal at n={n}, view offsets {offs} "
+            f"(data_ptr % 16 = {[t.data_ptr() % 16 for t in views]})")
+    del bufs, views, host, want
     # timing at the main path's stage size, kernel vs plain version on card
     n = stage_elems
     g = torch.randn(n, generator=gen, device="cuda") * 1e-3
@@ -342,12 +449,15 @@ def kernel_ssd(gen) -> dict:
     return rec
 
 
-def phase_tiny_twin(family: str) -> None:
+def phase_tiny_twin(family: str) -> dict:
+    """3 steps of a tiny float32 cluster on the card and on the CPU; returns
+    the card's launch counts."""
     cfg = tiny_config(family)
     kw = dict(global_batch=8, num_micro=2, seq_len=16)
     cpu = VirtualCluster(cfg, 2, 2, device="cpu", **kw)
     init = params_to_numpy(cpu.stem, cpu.layer_params, cpu.head)
     gpu = VirtualCluster(cfg, 2, 2, device="cuda", init_params=init, **kw)
+    _build.reset_launch_counts()
     for step in range(3):
         a, b = gpu.train_step(), cpu.train_step()
         check(abs(a - b) <= LOSS_ATOL + LOSS_RTOL * abs(b),
@@ -365,6 +475,9 @@ def phase_tiny_twin(family: str) -> None:
                 worst = max(worst, float((x - y).abs().max()))
         log(f"tiny {family} twin step {step}: loss card {a:.7f} cpu {b:.7f} "
             f"state max_abs_diff {worst:.3e} (atol {atol:.1e})")
+    counts = dict(_build.LAUNCHES)
+    log(f"tiny {family} twin launches on the card: {counts}")
+    return counts
 
 
 def snapshot_matches_device(cl: VirtualCluster) -> bool:
@@ -399,7 +512,7 @@ def phase_train(cfg, want: dict) -> dict:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         snap = cl.snapshot_seconds[-1]
-        log(f"step {step}: loss {loss:.6f} step_s {dt:.3f} "
+        log(f"step {step}: loss {loss:.6f} ({loss!r}) step_s {dt:.3f} "
             f"snapshot_s {snap:.3f} (share {snap / dt:.3f}) "
             f"peak_mem_GB {torch.cuda.max_memory_allocated() / 1e9:.2f}")
         check(math.isfinite(loss), f"step {step}: loss not finite")
@@ -416,8 +529,7 @@ def main() -> None:
     phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    recs = {"rmsnorm": kernel_rmsnorm(gen),
-            "flash_attention": kernel_flash(gen)}
+    recs = {"rmsnorm": kernel_rmsnorm(gen), **kernel_flash(gen)}
     cfg = codeqwen1p5_7b.config()
     # the larger stage of the dense phase: one layer + the head
     stage = cfg._block_params("attn") + cfg.d_model * cfg.vocab_size \
@@ -425,7 +537,10 @@ def main() -> None:
     recs["fused_adam"] = kernel_adam(gen, stage)
     recs["ssd_scan"] = kernel_ssd(gen)
     torch.cuda.empty_cache()
-    phase_tiny_twin("dense")
+    tiny = phase_tiny_twin("dense")
+    check(tiny["flash_attention_sm90"] == 0 and tiny["flash_attention"] > 0,
+          f"tiny dense twin (float32, head_dim 16) must take the CUDA-core "
+          f"flash route only: {tiny}")
     phase_tiny_twin("ssm")
     paths = {"codeqwen1.5-7b": phase_train(
         dataclasses.replace(cfg, num_layers=2), DENSE_LAUNCHES)}
@@ -437,7 +552,13 @@ def main() -> None:
                     replaces=SOURCES[name][1],
                     launches=sum(p[name] for p in paths.values()),
                     launches_by_path={k: p[name] for k, p in paths.items()},
+                    **({"design": DESIGNS[name]} if name in DESIGNS else {}),
                     **recs[name]) for name in SOURCES]
+    # the CUDA-core flash kernel is off the main paths (they train in bf16
+    # at head_dim 128); the tiny float32 dense twin is where it runs
+    next(k for k in kernels if k["name"] == "flash_attention")[
+        "launches_by_path"]["tiny-dense twin (float32)"] = \
+        tiny["flash_attention"]
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

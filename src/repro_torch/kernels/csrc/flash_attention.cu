@@ -1,4 +1,7 @@
-// Flash-attention forward for Hopper (sm_90a).
+// Flash-attention forward for Hopper (sm_90a) on the CUDA cores: the route
+// for float32 inputs and for bf16 at head_dim 16 or 32.  bf16 at head_dim 64
+// or 128 (every model the port trains) takes the tensor-core kernel in
+// flash_attention_sm90.cu.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:
 // flash_attention_kernel (body _flash_kernel), together with the GQA repeat
@@ -10,9 +13,10 @@
 // Bound on this card: operations.  Causal attention at [1, 4096, 32, 128]
 // needs ~4*hd flops per (query, key) pair below the diagonal, 137 GFLOP, which
 // is ~139 us at the 989 TFLOP/s of bf16 tensor cores (the q, k, v and o bytes,
-// 134 MB, take ~40 us).  This first version runs its products as float32 FMAs
-// on the CUDA cores (67 TFLOP/s peak), so it sits well above that bound;
-// wgmma tiles are later work.
+// 134 MB, take ~40 us); in float32 against the 67 TFLOP/s of the CUDA cores
+// it is ~2.05 ms.  This kernel runs its products as float32 FMAs on the CUDA
+// cores, so it sits well above either bound; redesigning it for float32
+// inputs is later work.
 //
 // Design: one 256-thread block per (batch*head, 64-row q tile).  Four
 // neighbouring threads share a q row, each owning every fourth head dim, so
@@ -25,6 +29,8 @@
 #include "common.cuh"
 
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -133,28 +139,44 @@ template <typename T>
 int launch(int hd, dim3 grid, cudaStream_t st, const void* q, const void* k,
            const void* v, void* o, int S, int H, int rep, Strides qs,
            Strides ks, Strides vs, int causal, float sm_scale) {
-#define REPRO_FLASH_CASE(HD_)                                               \
-  case HD_:                                                                 \
-    flash_fwd_kernel<T, HD_><<<grid, kThreads, 0, st>>>(                    \
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, S, H, rep, qs, ks, vs, \
-        causal, sm_scale);                                                  \
+#define REPRO_FLASH_LAUNCH(HD_)                                             \
+  flash_fwd_kernel<T, HD_><<<grid, kThreads, 0, st>>>(                      \
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, H, rep, qs, ks, vs,   \
+      causal, sm_scale);
+#define REPRO_FLASH_CASE(HD_) \
+  case HD_:                   \
+    REPRO_FLASH_LAUNCH(HD_)   \
     break;
+  // bf16 at head_dim 64 and 128 is flash_attention_sm90.cu's route
+  constexpr bool kWide = std::is_same<T, float>::value;
   switch (hd) {
     REPRO_FLASH_CASE(16)
     REPRO_FLASH_CASE(32)
-    REPRO_FLASH_CASE(64)
-    REPRO_FLASH_CASE(128)
+    case 64:
+      if constexpr (kWide) {
+        REPRO_FLASH_LAUNCH(64)
+        break;
+      }
+      return (int)cudaErrorInvalidValue;
+    case 128:
+      if constexpr (kWide) {
+        REPRO_FLASH_LAUNCH(128)
+        break;
+      }
+      return (int)cudaErrorInvalidValue;
     default:
       return (int)cudaErrorInvalidValue;
   }
 #undef REPRO_FLASH_CASE
+#undef REPRO_FLASH_LAUNCH
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q: [B, S, H, hd]; k, v: [B, S, Hkv, hd] (any strides, unit hd stride);
-// o: [B, S, H, hd] contiguous, in the inputs' dtype.
+// o: [B, S, H, hd] contiguous, in the inputs' dtype: float32 at head_dim
+// 16-128, bf16 at 16 or 32.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, int B, int S, int H,
     int Hkv, int hd, long long q_sb, long long q_ss, long long q_sh,

@@ -1,10 +1,22 @@
-"""Flash attention — launcher of the CUDA kernel ``csrc/flash_attention.cu``.
+"""Flash attention — launchers of the CUDA kernels
+``csrc/flash_attention_sm90.cu`` and ``csrc/flash_attention.cu``.
 
-Replaces ``repro/kernels/flash_attention.py:flash_attention_kernel`` and the
+Replace ``repro/kernels/flash_attention.py:flash_attention_kernel`` and the
 GQA repeat / head folding of ``repro/kernels/ops.py:flash_attention``: the
-kernel reads q ``[B,S,H,hd]`` and k/v ``[B,S,Hkv,hd]`` through their strides
+kernels read q ``[B,S,H,hd]`` and k/v ``[B,S,Hkv,hd]`` through their strides
 (kv head ``h // (H/Hkv)``), so no repeated or transposed copies are made,
 and any ``S`` works.
+
+The route is chosen by ``(dtype, head_dim)`` alone:
+
+- bf16 at head_dim 64 or 128 (every model the port trains): the tensor-core
+  kernel (``wgmma`` + TMA).  TMA needs a unit head_dim stride, and the base
+  pointers and every other stride a multiple of 16 bytes; anything else
+  raises.
+- float32, and bf16 at head_dim 16 or 32: the CUDA-core kernel, which reads
+  any strides (a tensor whose head_dim stride is not 1 is made contiguous).
+
+A failed launch raises; no route takes over from another.
 """
 from __future__ import annotations
 
@@ -14,6 +26,46 @@ from . import _build
 from .rmsnorm import DTYPE_CODES
 
 HEAD_DIMS = (16, 32, 64, 128)
+SM90_HEAD_DIMS = (64, 128)
+
+
+def uses_sm90(dtype: torch.dtype, hd: int) -> bool:
+    """True where the tensor-core kernel is the route."""
+    return dtype == torch.bfloat16 and hd in SM90_HEAD_DIMS
+
+
+def _require_card(*ts: torch.Tensor) -> None:
+    if not all(t.is_cuda for t in ts):
+        raise ValueError("flash_attention_cuda: q, k, v must be CUDA tensors")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _tma_strides(name: str, t: torch.Tensor) -> list:
+    """Element strides (batch, seq, head) of ``t`` [B, S, heads, hd] as the
+    tensor-core kernel's tensor maps take them; raises where TMA cannot
+    read ``t`` in place.  A dimension of size 1 is never stepped over, so
+    its stride is replaced by the contiguous one."""
+    if t.stride(-1) != 1:
+        raise ValueError(f"flash_attention_cuda: {name} has head_dim stride "
+                         f"{t.stride(-1)}; the tensor-core route needs 1")
+    if t.data_ptr() % 16:
+        raise ValueError(f"flash_attention_cuda: {name} starts "
+                         f"{t.data_ptr() % 16} bytes off a 16-byte boundary "
+                         f"(TMA needs 16-byte alignment)")
+    _, S, heads, hd = t.shape
+    out = []
+    for size, stride, dense in zip(t.shape[:3], t.stride()[:3],
+                                   (S * heads * hd, heads * hd, hd)):
+        stride = dense if size == 1 else stride
+        if stride * t.element_size() % 16:
+            raise ValueError(f"flash_attention_cuda: {name} strides "
+                             f"{tuple(t.stride())} are not multiples of 16 "
+                             f"bytes (TMA)")
+        out.append(stride)
+    return out
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -21,8 +73,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: [B,S,H,hd]; k,v: [B,S,Hkv,hd] on the card -> [B,S,H,hd]."""
     B, S, H, hd = q.shape
     Hkv = k.shape[2]
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("flash_attention_cuda: q, k, v must be CUDA tensors")
+    _require_card(q, k, v)
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention_cuda: unsupported dtypes "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
@@ -32,12 +83,20 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (B, S, Hkv, hd) or v.shape != (B, S, Hkv, hd):
         raise ValueError(f"flash_attention_cuda: k/v shapes {tuple(k.shape)}"
                          f"/{tuple(v.shape)} do not match q {tuple(q.shape)}")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     o = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    if uses_sm90(q.dtype, hd):
+        strides = [s for name, t in (("q", q), ("k", k), ("v", v))
+                   for s in _tma_strides(name, t)]
+        _build.launch("flash_attention_sm90", "repro_flash_attention_sm90",
+                      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                      B, S, H, Hkv, hd, *strides, int(causal),
+                      float(hd ** -0.5), _stream(q))
+        return o
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     _build.launch("flash_attention", "repro_flash_attention",
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                   B, S, H, Hkv, hd,
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                   int(causal), float(hd ** -0.5), DTYPE_CODES[q.dtype],
-                  torch.cuda.current_stream(q.device).cuda_stream)
+                  _stream(q))
     return o
