@@ -7,8 +7,10 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 1. device: the card's name and power limit (``nvidia-smi``); no card, exit 1;
 2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc),
-   and the tensor-core flash kernel's SASS (``cuobjdump``) checked for
-   HGMMA in both forms and UTMALDG;
+   and the tensor-core kernels' SASS (``cuobjdump``) checked: flash for
+   HGMMA in both forms and UTMALDG, the SSD scan's three kernels for HMMA
+   (bf16, float32 accumulators) and LDGSTS (cp.async) and all three for no
+   local-memory traffic (spills);
 3. every kernel against its plain PyTorch version on the card at the main
    paths' shapes (rmsnorm [4096, 4096]; flash attention [1, 4096, 32, 128]
    causal on both routes: float32, and bf16 at head_dim 32, on the CUDA
@@ -16,9 +18,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    4000, bidirectional, a peaked softmax and strided projection views; fused AdamW bitwise
    against the numpy oracle over 3 steps, at n % 4 != 0 and on views off a
    16-byte boundary; the SSD scan at [1, 4096, 80, 64] with n 128, chunk
-   256, against the sequential oracle in bf16 and fp32, with order-1 and
-   small step sizes, and with 8 groups, its fp32 cases also against the
-   oracle in float64), with kernel, plain-version and library-call times;
+   256, against the sequential oracle: bf16 on the tensor-core route and,
+   on the same inputs, the CUDA-core kernel, fp32 on the CUDA-core route,
+   with order-1 and small step sizes, and with 8 groups, its fp32 cases
+   also against the oracle in float64), with kernel, plain-version and
+   library-call times (rmsnorm and ``F.rms_norm`` interleaved; the SSD scan
+   beside ``ref.ssd_chunked`` in bf16, composed of cuBLAS products);
 4. a tiny dense and a tiny ssm cluster on the card against the same
    clusters on the CPU, for 3 steps each, within the reference's
    kernel-consistency bounds (the dense twin, float32 at head_dim 16,
@@ -56,7 +61,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda, uses_sm90)
 from repro_torch.kernels.fused_adam import fused_adam_cuda_  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda  # noqa: E402
-from repro_torch.kernels.ssd_scan import ssd_scan_cuda  # noqa: E402
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    ssd_scan_cuda, ssd_scan_cuda_cores, uses_sm90 as ssd_uses_sm90)
 from repro_torch.models.registry import tiny_config  # noqa: E402
 from repro_torch.optim.adam import AdamConfig, adam_update_flat_np  # noqa: E402
 from repro_torch.weights import params_to_numpy  # noqa: E402
@@ -77,6 +83,8 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:78"),
     "fused_adam": ("src/repro_torch/kernels/csrc/fused_adam.cu",
                    "src/repro/kernels/fused_adam.py:52"),
+    "ssd_scan_sm90": ("src/repro_torch/kernels/csrc/ssd_scan_sm90.cu",
+                      "src/repro/kernels/ssd_scan.py:78"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:78"),
 }
@@ -86,13 +94,25 @@ DESIGNS = {
                             "hi + lo), K/V by TMA in a 2-stage mbarrier ring",
     "flash_attention": "float32, and bf16 at head_dim 16/32: float32 FMAs on "
                        "the CUDA cores",
+    "ssd_scan_sm90": "bf16, p <= 64, n <= 128, chunk % 64 == 0: "
+                     "chunk-parallel (chunk_state, state_pass, chunk_out), "
+                     "mma.sync m16n8k16 with float32 operands as three bf16 "
+                     "pieces, x/B/C tiles through cp.async",
+    "ssd_scan": "float32, and other bf16 widths: one block per (b*h, p "
+                "tile) walking the chunks, float32 FMAs on the CUDA cores",
 }
 # exact launches over 3 steps of each main path (4 items a step); every
 # flash launch of the bf16 models takes the tensor-core kernel
 DENSE_LAUNCHES = {"rmsnorm": 60, "flash_attention": 0, "fused_adam": 6,
-                  "ssd_scan": 0, "flash_attention_sm90": 24}
+                  "ssd_scan": 0, "flash_attention_sm90": 24,
+                  "ssd_scan_sm90": 0}
 SSM_LAUNCHES = {"rmsnorm": 108, "flash_attention": 0, "fused_adam": 6,
-                "ssd_scan": 48, "flash_attention_sm90": 0}
+                "ssd_scan": 0, "flash_attention_sm90": 0,
+                "ssd_scan_sm90": 48}
+# the tensor-core SSD scan's kernels: name -> HMMA and LDGSTS expected
+SSD_SM90_KERNELS = {"ssd_chunk_state_kernel": True,
+                    "ssd_state_pass_kernel": False,
+                    "ssd_chunk_out_kernel": True}
 
 
 def log(msg: str) -> None:
@@ -116,6 +136,35 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def interleaved_medians(fns: dict, rounds: int, iters: int) -> dict:
+    """Median over ``rounds`` of each function's mean time, the functions
+    timed in turn within each round (``time_ms`` over ``iters``)."""
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name].append(time_ms(fn, iters))
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def device_us_by_kernel(fn, iters: int) -> dict:
+    """Device microseconds per call of ``fn`` by kernel name, from
+    ``torch.profiler`` over ``iters`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            name = re.search(r"(\w+)\(", e.key)
+            out[name.group(1) if name else e.key] = \
+                e.device_time_total / iters
+    return out
 
 
 def bound(nbytes: float, ops_: float, dtype) -> tuple:
@@ -159,9 +208,12 @@ def phase_build() -> None:
 
 
 def sass_check() -> None:
-    """The tensor-core flash kernel's machine code (``cuobjdump -sass`` of
-    the built library) must hold HGMMA for both products (shared-memory A
-    for Q.K^T, register A for P.V) and UTMALDG (TMA loads)."""
+    """The tensor-core kernels' machine code (``cuobjdump -sass`` of the
+    built library).  Flash must hold HGMMA for both products (shared-memory
+    A for Q.K^T, register A for P.V) and UTMALDG (TMA loads).  The SSD
+    scan's chunk_state and chunk_out must hold HMMA.16816.F32.BF16
+    (mma.sync, bf16 in, float32 accumulators) and LDGSTS (cp.async), and
+    none of its three kernels may touch local memory (LDL/STL: spills)."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(_build.build())],
                           capture_output=True, text=True, check=True).stdout
@@ -169,14 +221,20 @@ def sass_check() -> None:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = {"HGMMA": 0, "HGMMA register A": 0, "UTMALDG": 0}
+            counts[fn] = {"HGMMA": 0, "HGMMA register A": 0, "UTMALDG": 0,
+                          "HMMA bf16": 0, "LDGSTS": 0, "LDL/STL": 0}
+            continue
+        if fn is None:
             continue
         hgmma = re.search(r"HGMMA\.\S+\s+[^,]+,\s*([^,\s]+)", line)
-        if fn is not None and hgmma:
+        if hgmma:
             counts[fn]["HGMMA"] += 1
             counts[fn]["HGMMA register A"] += hgmma.group(1).startswith("R")
-        if fn is not None and "UTMALDG" in line:
-            counts[fn]["UTMALDG"] += 1
+        counts[fn]["UTMALDG"] += "UTMALDG" in line
+        counts[fn]["HMMA bf16"] += bool(
+            re.search(r"\bHMMA\.16816\.F32\.BF16\b", line))
+        counts[fn]["LDGSTS"] += bool(re.search(r"\bLDGSTS\b", line))
+        counts[fn]["LDL/STL"] += bool(re.search(r"\b(LDL|STL)\b", line))
     sm90 = {f: c for f, c in counts.items() if "flash_fwd_sm90_kernel" in f}
     check(len(sm90) == 2, f"expected 2 tensor-core flash kernels in the "
                           f"SASS, found {len(sm90)}")
@@ -184,6 +242,17 @@ def sass_check() -> None:
         log(f"  SASS {f[:90]}: {c}")
         check(c["HGMMA"] > c["HGMMA register A"] > 0 and c["UTMALDG"] > 0,
               f"{f}: HGMMA for both products and UTMALDG expected: {c}")
+    for kernel, products in SSD_SM90_KERNELS.items():
+        found = [(f, c) for f, c in counts.items() if kernel in f]
+        check(len(found) == 1, f"expected one {kernel} in the SASS, found "
+                               f"{len(found)}")
+        f, c = found[0]
+        log(f"  SASS {kernel}: HMMA bf16 {c['HMMA bf16']}, LDGSTS "
+            f"{c['LDGSTS']}, LDL/STL {c['LDL/STL']}")
+        check(c["LDL/STL"] == 0, f"{kernel}: local-memory traffic: {c}")
+        if products:
+            check(c["HMMA bf16"] > 0 and c["LDGSTS"] > 0,
+                  f"{kernel}: HMMA.16816.F32.BF16 and LDGSTS expected: {c}")
 
 
 def kernel_rmsnorm(gen) -> dict:
@@ -202,13 +271,17 @@ def kernel_rmsnorm(gen) -> dict:
             nbytes = 2 * rows * d * x.element_size() + 4 * d
             b, by = bound(nbytes, 4 * rows * d, dtype)
             sc = scale.to(dtype)
-            rec = dict(max_abs_err=err,
-                       ms=time_ms(lambda: rmsnorm_cuda(x, scale, eps), 50),
+            # kernel and library call in turn, 5 rounds of 50 launches
+            med = interleaved_medians(
+                {"kernel": lambda: rmsnorm_cuda(x, scale, eps),
+                 "library": lambda: F.rms_norm(x, (d,), sc, eps)}, 5, 50)
+            log(f"  rmsnorm bf16 medians of 5 interleaved rounds of 50: "
+                f"kernel {med['kernel']:.5f} ms, F.rms_norm "
+                f"{med['library']:.5f} ms")
+            rec = dict(max_abs_err=err, ms=med["kernel"],
                        plain_ms=time_ms(lambda: ref.rmsnorm_reference(
                            x, scale, eps), 20),
-                       bound_ms=b, bound_by=by,
-                       library_ms=time_ms(lambda: F.rms_norm(
-                           x, (d,), sc, eps), 50))
+                       bound_ms=b, bound_by=by, library_ms=med["library"])
     return rec
 
 
@@ -361,7 +434,10 @@ def kernel_ssd(gen) -> dict:
     """The SSD scan at mamba2-2.7b's widths, x, B and C as views of one
     activation as in the model.  Two step-size regimes: dt of order 1 with
     the init's A (the state decays within a chunk), and dt in [1e-3, 1e-1]
-    with |A| <= 1 (the state carries across all 16 chunks).
+    with |A| <= 1 (the state carries across all 16 chunks).  bf16 goes
+    through ``ssd_scan_cuda`` to the tensor-core route; on the same inputs
+    the CUDA-core kernel is launched too (``ssd_scan_cuda_cores``), so both
+    are held to the tier and timed.  Returns the records of both kernels.
 
     The gate is the tier against the float32 oracle on silu-activated x, B
     and C, the main path's inputs (``apply_mamba`` applies silu to xBC
@@ -374,7 +450,7 @@ def kernel_ssd(gen) -> dict:
     meets the elementwise tier, so they are held to the witness alone and
     their elementwise misses are printed."""
     b, s, h, p, n, chunk = 1, 4096, 80, 64, 128, 256
-    rec = {}
+    recs = {}
     for dtype, g, regime, act in ((torch.bfloat16, 1, "typical", "silu"),
                                   (torch.bfloat16, 1, "carried", "silu"),
                                   (torch.bfloat16, 8, "typical", "silu"),
@@ -399,16 +475,28 @@ def kernel_ssd(gen) -> dict:
             dt = 1e-3 + (1e-1 - 1e-3) * torch.rand(b, s, h, generator=gen,
                                                    device="cuda")
             A = -(0.05 + 0.95 * torch.rand(h, generator=gen, device="cuda"))
+        sm90 = ssd_uses_sm90(dtype, p, n, chunk)
+        check(sm90 == (dtype == torch.bfloat16),
+              f"ssd_scan_cuda routes {dtype} to the wrong kernel")
         y = ssd_scan_cuda(x, dt, A, B, C, chunk)
         Bh, Ch = (t.repeat_interleave(h // g, dim=2) for t in (B, C))
         want = ref.ssd_reference(x, dt, A, Bh, Ch)[0]
-        ok, err = within(y, want, tier)
         name = f"ssd_scan {dtype} g={g} {regime} {act}"
-        log(f"{name}: max_abs_err {err:.3e} (max |y| "
-            f"{float(want.float().abs().max()):.2f}) tier {tier_name} "
-            f"ok={ok}")
-        if act == "silu":
-            check(ok, f"{name} outside {tier_name}")
+        outs = {"tensor cores" if sm90 else "CUDA cores": y}
+        if sm90:
+            outs["CUDA cores"] = ssd_scan_cuda_cores(x, dt, A, B, C, chunk)
+        errs = {}
+        for route, got in outs.items():
+            ok, errs[route] = within(got, want, tier)
+            log(f"{name} on the {route}: max_abs_err {errs[route]:.3e} (max "
+                f"|y| {float(want.float().abs().max()):.2f}) tier "
+                f"{tier_name} ok={ok}")
+            if act == "silu":
+                check(ok, f"{name} on the {route} outside {tier_name}")
+        if sm90:
+            diff = (y.float() - outs["CUDA cores"].float()).abs().max()
+            log(f"  tensor cores vs CUDA cores: max_abs_diff "
+                f"{float(diff):.3e}")
         if dtype == torch.float32:
             d = [t.double() for t in (x, dt, A, Bh, Ch)]
             y64 = ref.ssd_reference(*d)[0]
@@ -433,20 +521,44 @@ def kernel_ssd(gen) -> dict:
             # the main path's case.  Bound: x, B, C, dt, A read once, y
             # written once; the causal pairs i >= j of each chunk for C B^T
             # and M x, plus the entering-state term and the state update
-            ms = time_ms(lambda: ssd_scan_cuda(x, dt, A, B, C, chunk), 10)
             nc, es = s // chunk, x.element_size()
             nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * es \
                 + 4 * (b * s * h + h)
             flops = b * h * nc * (chunk * (chunk + 1) * (n + p)
                                   + 4 * chunk * p * n)
             bnd, by = bound(nbytes, flops, dtype)
+            med = interleaved_medians(
+                {"tensor cores": lambda: ssd_scan_cuda(x, dt, A, B, C,
+                                                       chunk),
+                 "CUDA cores": lambda: ssd_scan_cuda_cores(x, dt, A, B, C,
+                                                           chunk)}, 3, 10)
+            phases = device_us_by_kernel(
+                lambda: ssd_scan_cuda(x, dt, A, B, C, chunk), 10)
+            # the composed yardstick: the chunked form in bf16, its
+            # products cuBLAS batched matmuls; no single PyTorch call
+            composed = time_ms(lambda: ref.ssd_chunked(x, dt, A, B, C,
+                                                       chunk), 5)
+            _, composed_err = within(ref.ssd_chunked(x, dt, A, B, C,
+                                                     chunk)[0], want, tier)
             plain = time_ms(lambda: ref.ssd_reference(x, dt, A, Bh, Ch), 1)
-            log(f"  ms {ms:.3f} plain_ms {plain:.3f} bound_ms {bnd:.4f} "
-                f"({by}); library: no single PyTorch call")
-            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                       bound_by=by, library_ms=None)
-        del xBC, x, B, C, Bh, Ch, y, want
-    return rec
+            log(f"  ms: tensor cores {med['tensor cores']:.4f}, CUDA cores "
+                f"{med['CUDA cores']:.4f} (medians of 3 interleaved rounds "
+                f"of 10); composed ref.ssd_chunked bf16 {composed:.4f} "
+                f"(max_abs_err {composed_err:.3e}); plain_ms {plain:.3f}; "
+                f"bound_ms {bnd:.4f} ({by})")
+            log("  tensor-core route by kernel, us a call: " + ", ".join(
+                f"{k} {v:.2f}" for k, v in phases.items()
+                if k.startswith("ssd_")))
+            common = dict(plain_ms=plain, bound_ms=bnd, bound_by=by,
+                          library_ms=None, composed_ms=composed)
+            recs["ssd_scan_sm90"] = dict(
+                max_abs_err=errs["tensor cores"], ms=med["tensor cores"],
+                phases_us={k: v for k, v in phases.items()
+                           if k.startswith("ssd_")}, **common)
+            recs["ssd_scan"] = dict(max_abs_err=errs["CUDA cores"],
+                                    ms=med["CUDA cores"], **common)
+        del xBC, x, B, C, Bh, Ch, y, want, outs
+    return recs
 
 
 def phase_tiny_twin(family: str) -> dict:
@@ -535,13 +647,16 @@ def main() -> None:
     stage = cfg._block_params("attn") + cfg.d_model * cfg.vocab_size \
         + cfg.d_model
     recs["fused_adam"] = kernel_adam(gen, stage)
-    recs["ssd_scan"] = kernel_ssd(gen)
+    recs.update(kernel_ssd(gen))
     torch.cuda.empty_cache()
     tiny = phase_tiny_twin("dense")
     check(tiny["flash_attention_sm90"] == 0 and tiny["flash_attention"] > 0,
           f"tiny dense twin (float32, head_dim 16) must take the CUDA-core "
           f"flash route only: {tiny}")
-    phase_tiny_twin("ssm")
+    tiny_ssm = phase_tiny_twin("ssm")
+    check(tiny_ssm["ssd_scan_sm90"] == 0 and tiny_ssm["ssd_scan"] > 0,
+          f"tiny ssm twin (float32) must take the CUDA-core SSD route only: "
+          f"{tiny_ssm}")
     paths = {"codeqwen1.5-7b": phase_train(
         dataclasses.replace(cfg, num_layers=2), DENSE_LAUNCHES)}
     gc.collect()                 # free the dense cluster's host and card state
@@ -554,11 +669,13 @@ def main() -> None:
                     launches_by_path={k: p[name] for k, p in paths.items()},
                     **({"design": DESIGNS[name]} if name in DESIGNS else {}),
                     **recs[name]) for name in SOURCES]
-    # the CUDA-core flash kernel is off the main paths (they train in bf16
-    # at head_dim 128); the tiny float32 dense twin is where it runs
-    next(k for k in kernels if k["name"] == "flash_attention")[
-        "launches_by_path"]["tiny-dense twin (float32)"] = \
-        tiny["flash_attention"]
+    # the CUDA-core flash and SSD kernels are off the main paths (they
+    # train in bf16); the tiny float32 twins are where they run
+    by_name = {k["name"]: k for k in kernels}
+    by_name["flash_attention"]["launches_by_path"][
+        "tiny-dense twin (float32)"] = tiny["flash_attention"]
+    by_name["ssd_scan"]["launches_by_path"][
+        "tiny-ssm twin (float32)"] = tiny_ssm["ssd_scan"]
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -229,7 +229,8 @@ def test_flash_counts_each_route_under_its_own_kernel(monkeypatch):
             fa.flash_attention_cuda(q, q, q, True)
     assert _build.LAUNCHES == {"rmsnorm": 0, "flash_attention": 3,
                                "fused_adam": 0, "ssd_scan": 0,
-                               "flash_attention_sm90": 3}
+                               "flash_attention_sm90": 3,
+                               "ssd_scan_sm90": 0}
 
 
 def test_flash_requires_card():
