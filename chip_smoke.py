@@ -27,14 +27,35 @@ Phases, in order; any failure exits non-zero and prints no result:
 4. a tiny dense and a tiny ssm cluster on the card against the same
    clusters on the CPU, for 3 steps each, within the reference's
    kernel-consistency bounds (the dense twin, float32 at head_dim 16,
-   must take the CUDA-core flash route only);
+   must take the CUDA-core flash route only); then both twins through the
+   recovery sequence of ``tests/test_torch_recovery.py`` (fail-stop found
+   by the probes with a corrupted snapshot, scale-out, fail-slow with a
+   layer migration, drain with a corrupted snapshot, a two-rank burst,
+   DVFS and OOM-risk events): records, remap plans, integrity tiers and
+   layouts equal exactly, losses and state within the same bounds; and the
+   main-path kernels at the shapes recovery gives them (batch-2 items:
+   rmsnorm on 8192 rows of 2560 and 5120, the SSD scan at
+   [2, 4096, 80, 64]) against their plain versions;
 5. the dense main path: ``VirtualCluster.train_step`` on codeqwen1.5-7b at
    its published widths and dtype, depth cut to 2 layers, dp=2, pp=2, seq
    4096, for 3 steps, with exact kernel launch counts (every flash launch
    on the tensor-core route) and the host ring snapshot bitwise equal to
    the device shards after every step;
-6. the ssm main path: the same on mamba2-2.7b, depth cut to 4 layers;
-7. a JSON line with every kernel's numbers, then the result line.
+6. the ssm main path: the same on mamba2-2.7b, depth cut to 4 layers,
+   its cost model given the H100 data-sheet figures (peak bf16 rate, HBM
+   rate and size; the other ``HardwareSpec`` fields keep the reference's
+   model defaults);
+7. recovery on that cluster, between train steps: a fail-stop found by the
+   probes (``inject_fail_stop`` + ``detect_and_recover``), a scale-out, a
+   fail-slow that migrates two layers, and a proactive drain, each followed
+   by one step; after every recovery and step the ring snapshot equals the
+   device shards bit for bit, the loss is finite and the layout is the
+   planned one; exact launch counts over the 4 steps; each recovery's
+   measured wall clock by phase (verify, communicator edit, live remap,
+   migration, dataflow; ring re-bootstrap inside remap and migration),
+   its total and peak device memory beside the record's modeled seconds;
+8. a JSON line with every kernel's numbers, one with every recovery's, then
+   the result line.
 """
 from __future__ import annotations
 
@@ -56,6 +77,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import codeqwen1p5_7b, mamba2_2p7b  # noqa: E402
 from repro_torch.core.cluster import VirtualCluster  # noqa: E402
+from repro_torch.core.cost_model import HardwareSpec  # noqa: E402
+from repro_torch.core.events import ElasticEvent, EventKind  # noqa: E402
+from repro_torch.core.fabric.snapshot import SnapshotPool  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda, uses_sm90)
@@ -70,6 +94,10 @@ from repro_torch.weights import params_to_numpy  # noqa: E402
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# the cost model of the ssm phases: the data sheet's figures; link_bw, mfu
+# and the frequencies keep the reference's model defaults
+H100_HW = HardwareSpec(peak_flops=PEAK_OPS_PER_S[torch.bfloat16],
+                       hbm_bw=HBM_BYTES_PER_S, hbm_bytes=80e9)
 # kernel-consistency bounds of the reference (core/invariants.py)
 LOSS_RTOL, LOSS_ATOL, PARAM_RTOL, PARAM_ATOL0 = 1e-4, 1e-6, 1e-4, 1e-5
 
@@ -109,6 +137,35 @@ DENSE_LAUNCHES = {"rmsnorm": 60, "flash_attention": 0, "fused_adam": 6,
 SSM_LAUNCHES = {"rmsnorm": 108, "flash_attention": 0, "fused_adam": 6,
                 "ssd_scan": 0, "flash_attention_sm90": 0,
                 "ssd_scan_sm90": 48}
+# exact launches over the 4 steps of phase 7: after a shrink each step is 2
+# items of batch 2, after the scale-out 4 items of batch 1
+RECOVERY_LAUNCHES = {"rmsnorm": 108, "flash_attention": 0, "fused_adam": 8,
+                     "ssd_scan": 0, "flash_attention_sm90": 0,
+                     "ssd_scan_sm90": 48}
+# phase 7: (name, recovery, layer_assignment, dp_ranks, per_rank_mbs after)
+# The fail-stop leaves stage 1 one rank wide, so the engine's graph plan
+# moves layer 2 to stage 0; the fail-slow of rank (0, 0) moves layers 1 and
+# 2 back to stage 1; the drain then keeps the layout.
+RECOVERIES = [
+    ("fail-stop (1, 1), detected",
+     lambda cl: (cl.inject_fail_stop(1, 1), cl.detect_and_recover())[1],
+     [(0, 2), (3, 3)], [[0, 1], [0]], [2]),
+    ("scale-out (1, 1)", lambda cl: cl.recover_scale_out(1, 1),
+     [(0, 2), (3, 3)], [[0, 1], [0, 1]], [1, 1]),
+    ("fail-slow (0, 0) x2.0", lambda cl: cl.recover_fail_slow(0, 0, 2.0),
+     [(0, 0), (1, 3)], [[0, 1], [0, 1]], [1, 1]),
+    ("drain (0, 0)", lambda cl: cl.drain_rank(0, 0),
+     [(0, 0), (1, 3)], [[1], [0, 1]], [2]),
+]
+# the tiny twins' recovery sequence (tests/test_torch_recovery.py SEQUENCE)
+TWIN_SEQUENCE = [
+    ("train",), ("corrupt", 1, 1), ("detect_fail_stop", 1, 1), ("train",),
+    ("scale_out", 1, 1), ("train",),
+    ("fail_slow", 0, 0, 2.0), ("train",),
+    ("corrupt", 0, 0), ("drain", 0, 0), ("train",),
+    ("burst_fail_stop", (5, 6)), ("train",),
+    ("event", "dvfs_set", (2,)), ("event", "oom_risk", (3,)),
+]
 # the tensor-core SSD scan's kernels: name -> HMMA and LDGSTS expected
 SSD_SM90_KERNELS = {"ssd_chunk_state_kernel": True,
                     "ssd_state_pass_kernel": False,
@@ -561,6 +618,44 @@ def kernel_ssd(gen) -> dict:
     return recs
 
 
+def kernel_recovery_shapes(gen) -> dict:
+    """The main-path kernels at the shapes phase 7 gives them after a shrink
+    (each item two sequences): rmsnorm on 8192 rows of mamba2's 2560 and
+    5120, and the tensor-core SSD scan at [2, 4096, 80, 64], n 128, chunk
+    256, x, B and C views of one silu-activated activation; each against its
+    plain version under the tier of phase 3.  Returns max_abs_err by name."""
+    errs = {}
+    for d in (2560, 5120):
+        x = torch.randn(2 * 4096, d, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        scale = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        ok, err = within(rmsnorm_cuda(x, scale, 1e-5),
+                         ref.rmsnorm_reference(x, scale, 1e-5),
+                         ops.TOLERANCE_TIERS["rmsnorm_bf16"])
+        log(f"rmsnorm bf16 [8192, {d}]: max_abs_err {err:.3e} ok={ok}")
+        check(ok, f"rmsnorm bf16 [8192, {d}] outside rmsnorm_bf16")
+        errs["rmsnorm"] = max(errs.get("rmsnorm", 0.0), err)
+    b, s, h, p, n, chunk = 2, 4096, 80, 64, 128, 256
+    xBC = F.silu(torch.randn(b, s, h * p + 2 * n, generator=gen,
+                             device="cuda")).to(torch.bfloat16)
+    x = xBC[..., :h * p].reshape(b, s, h, p)
+    B = xBC[..., h * p:h * p + n].reshape(b, s, 1, n)
+    C = xBC[..., h * p + n:].reshape(b, s, 1, n)
+    dt = F.softplus(torch.randn(b, s, h, generator=gen, device="cuda"))
+    A = -torch.linspace(1.0, 16.0, h, device="cuda")
+    check(ssd_uses_sm90(torch.bfloat16, p, n, chunk),
+          "the batch-2 SSD scan must take the tensor-core route")
+    Bh, Ch = (t.repeat_interleave(h, dim=2) for t in (B, C))
+    ok, err = within(ssd_scan_cuda(x, dt, A, B, C, chunk),
+                     ref.ssd_reference(x, dt, A, Bh, Ch)[0],
+                     ops.TOLERANCE_TIERS["ssd_scan_bf16"])
+    log(f"ssd_scan bf16 [2, 4096, 80, 64] on the tensor cores: max_abs_err "
+        f"{err:.3e} ok={ok}")
+    check(ok, "ssd_scan bf16 at batch 2 outside ssd_scan_bf16")
+    errs["ssd_scan_sm90"] = err
+    return errs
+
+
 def phase_tiny_twin(family: str) -> dict:
     """3 steps of a tiny float32 cluster on the card and on the CPU; returns
     the card's launch counts."""
@@ -592,6 +687,107 @@ def phase_tiny_twin(family: str) -> dict:
     return counts
 
 
+def _pin_planner_clock(cl: VirtualCluster, remaps: list) -> None:
+    """Twin bookkeeping: the planner's measured wall clock is pinned to 0
+    (so records compare exactly) and every live-remap plan is logged."""
+    plan, compute = cl.engine.plan, cl.remapper.compute_plan
+    cl.engine.plan = lambda *a, **k: dataclasses.replace(
+        plan(*a, **k), plan_seconds=0.0)
+
+    def logged(*a, **k):
+        out = compute(*a, **k)
+        remaps.append((out.moves, out.total_bytes, out.d2d_bytes,
+                       out.h2d_bytes, out.est_seconds))
+        return out
+    cl.remapper.compute_plan = logged
+
+
+def _twin_op(cl: VirtualCluster, op: tuple):
+    name, *args = op
+    if name == "train":
+        return cl.train_step()
+    if name == "corrupt":
+        d, p = args
+        return cl.snapshots[p].corrupt_shard(cl.stages[p].dp_ranks.index(d))
+    if name == "detect_fail_stop":
+        cl.inject_fail_stop(*args)
+        return cl.detect_and_recover()
+    if name in ("scale_out", "fail_slow", "drain"):
+        return getattr(cl, {"scale_out": "recover_scale_out",
+                            "fail_slow": "recover_fail_slow",
+                            "drain": "drain_rank"}[name])(*args)
+    if name == "burst_fail_stop":
+        return cl.apply_event(ElasticEvent(EventKind.FAIL_STOP,
+                                           cl.step_count, args[0]))
+    kind, ranks = args
+    return cl.apply_event(ElasticEvent(EventKind(kind), cl.step_count, ranks,
+                                       freq=1.1))
+
+
+def phase_tiny_recovery_twin(family: str) -> None:
+    """The tiny float32 cluster (dp=4, pp=2, global batch 16) on the card
+    and on the CPU through ``TWIN_SEQUENCE``: records, remap plans,
+    integrity tiers and layouts equal exactly, losses and state within the
+    kernel-consistency bounds after every step."""
+    cfg = tiny_config(family, num_layers=8 if family == "dense" else 4)
+    kw = dict(global_batch=16, num_micro=2, seq_len=16)
+    cpu = VirtualCluster(cfg, 4, 2, device="cpu", **kw)
+    init = params_to_numpy(cpu.stem, cpu.layer_params, cpu.head)
+    gpu = VirtualCluster(cfg, 4, 2, device="cuda", init_params=init, **kw)
+    logs = {"cpu": [], "cuda": []}
+    tiers = {"cpu": [], "cuda": []}
+    for dev, cl in (("cpu", cpu), ("cuda", gpu)):
+        _pin_planner_clock(cl, logs[dev])
+    orig = SnapshotPool.verify_and_repair
+    try:
+        for k, op in enumerate(TWIN_SEQUENCE):
+            where = f"tiny {family} recovery twin op {k} {op}"
+            out = {}
+            for dev, cl in (("cpu", cpu), ("cuda", gpu)):
+                def logged(self, *a, _t=tiers[dev], **kk):
+                    res = orig(self, *a, **kk)
+                    _t.append(res[0])
+                    return res
+                SnapshotPool.verify_and_repair = logged
+                out[dev] = _twin_op(cl, op)
+            if op[0] == "train":
+                a, b = out["cuda"], out["cpu"]
+                check(abs(a - b) <= LOSS_ATOL + LOSS_RTOL * abs(b),
+                      f"{where}: loss {a!r} vs cpu {b!r}")
+                atol = PARAM_ATOL0 + 2.0 * gpu.adam.lr * gpu.opt_step
+                for sg, sc in zip(gpu.stages, cpu.stages):
+                    for c in ("master", "mu", "nu"):
+                        check(torch.allclose(sg.full(c).cpu(), sc.full(c),
+                                             rtol=PARAM_RTOL, atol=atol),
+                              f"{where}: stage {c} beyond bounds")
+            else:
+                check(out["cuda"] == out["cpu"],
+                      f"{where}: records {out['cuda']} vs {out['cpu']}")
+            check(gpu.layer_assignment == cpu.layer_assignment
+                  and [s.dp_ranks for s in gpu.stages]
+                  == [s.dp_ranks for s in cpu.stages]
+                  and [s.entries for s in gpu.stages]
+                  == [s.entries for s in cpu.stages]
+                  and gpu.per_rank_mbs == cpu.per_rank_mbs
+                  and gpu.grad_weights == cpu.grad_weights,
+                  f"{where}: layouts differ")
+            check(logs["cuda"] == logs["cpu"], f"{where}: remap plans differ")
+            check(tiers["cuda"] == tiers["cpu"], f"{where}: tiers differ")
+            check(op[0] == "corrupt" or snapshot_matches_device(gpu),
+                  f"{where}: ring snapshot != device shards")
+            check(all(t.device.type == "cuda" for st in gpu.stages
+                      for t in st.flat.values()),
+                  f"{where}: stage state left the card")
+    finally:
+        SnapshotPool.verify_and_repair = orig
+    check("rebuilt" in tiers["cuda"] and "rederived" in tiers["cuda"],
+          f"tiny {family} recovery twin: tiers {tiers['cuda']}")
+    log(f"tiny {family} recovery twin: {len(gpu.recoveries)} recoveries, "
+        f"{len(logs['cuda'])} remap plans, tiers {tiers['cuda']}, layout "
+        f"{gpu.layer_assignment}, dp_ranks "
+        f"{[s.dp_ranks for s in gpu.stages]}: card == cpu")
+
+
 def snapshot_matches_device(cl: VirtualCluster) -> bool:
     for st, pool in zip(cl.stages, cl.snapshots):
         for c in ("master", "mu", "nu"):
@@ -603,12 +799,13 @@ def snapshot_matches_device(cl: VirtualCluster) -> bool:
     return True
 
 
-def phase_train(cfg, want: dict) -> dict:
+def phase_train(cfg, want: dict, **cluster_kw) -> tuple:
     """3 steps of ``VirtualCluster.train_step`` at dp=2, pp=2, global batch
-    4 in 2 micro-batches, seq 4096, random weights from seed 1."""
+    4 in 2 micro-batches, seq 4096, random weights from seed 1.  Returns
+    the launch counts and the cluster."""
     t0 = time.perf_counter()
     cl = VirtualCluster(cfg, 2, 2, global_batch=4, num_micro=2, seq_len=4096,
-                        device="cuda")
+                        device="cuda", **cluster_kw)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in cl._leaves)
     log(f"{cfg.name} ({cfg.num_layers} layers, dp=2, pp=2, seq 4096, "
@@ -633,7 +830,108 @@ def phase_train(cfg, want: dict) -> dict:
     launches = dict(_build.LAUNCHES)
     log(f"launches over 3 steps: {launches}")
     check(launches == want, f"launch counts {launches} != {want}")
-    return launches
+    return launches, cl
+
+
+def phase_recovery(cl: VirtualCluster) -> tuple:
+    """Phase 7: ``RECOVERIES`` on the mamba2 cluster of phase 6, each
+    followed by one train step.  Each phase of a recovery is timed by
+    wrapping the instance's own method between ``torch.cuda.synchronize``
+    calls.  Returns the launch counts over the 4 steps and one record per
+    recovery."""
+    timers: dict = {}
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                timers[name] = timers.get(name, 0.0) \
+                    + time.perf_counter() - t0
+        return wrapper
+
+    for attr, name in (("_verify_snapshot_sources", "verify"),
+                       ("_live_remap_stage", "remap"),
+                       ("_widen_stage", "remap"),
+                       ("_apply_migrations", "migration"),
+                       ("_apply_dataflow", "dataflow"),
+                       ("_rebootstrap", "ring_bootstrap")):
+        setattr(cl, attr, timed(name, getattr(cl, attr)))
+    cl.comm.apply = timed("communicator", cl.comm.apply)
+    plans = []
+    plan = cl.engine.plan
+    cl.engine.plan = lambda *a, **k: plans.append(plan(*a, **k)) or plans[-1]
+    log(f"cost model: {H100_HW} (peak_flops, hbm_bw, hbm_bytes from the "
+        f"H100 data sheet; link_bw, mfu, base_freq, max_freq are the "
+        f"reference's model defaults)")
+    out = []
+    _build.reset_launch_counts()
+    for name, recover, want_la, want_ranks, want_mbs in RECOVERIES:
+        timers.clear()
+        n_plans = len(plans)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rec = recover(cl)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        ranks = [s.dp_ranks for s in cl.stages]
+        check(rec is not None, f"{name}: no recovery ran")
+        check(snapshot_matches_device(cl),
+              f"{name}: host ring snapshot != device shards")
+        check([tuple(r) for r in cl.layer_assignment] == want_la
+              and ranks == want_ranks and cl.per_rank_mbs == want_mbs,
+              f"{name}: layout {cl.layer_assignment} {ranks} "
+              f"{cl.per_rank_mbs}, want {want_la} {want_ranks} {want_mbs}")
+        if len(plans) > n_plans:                # a shrink: the engine's plan
+            check(list(plans[-1].graph.stage_ranges) == want_la,
+                  f"{name}: layout differs from the plan's "
+                  f"{plans[-1].graph.stage_ranges}")
+        check(all(t.device.type == "cuda" for st in cl.stages
+                  for t in st.flat.values()),
+              f"{name}: stage state left the card")
+        sizes = [s.total for s in cl.stages]
+        measured = {k: timers.get(k, 0.0) for k in (
+            "verify", "communicator", "remap", "migration", "dataflow",
+            "ring_bootstrap")}
+        log(f"{name}: wall {wall:.3f} s, peak_mem_GB {peak:.2f}, measured "
+            f"s: " + ", ".join(f"{k} {v:.4f}" for k, v in measured.items())
+            + f", planner {rec['plan']:.4f}; layout {cl.layer_assignment} "
+            f"dp_ranks {ranks} stage sizes {sizes}")
+        log(f"  record (modeled seconds, except plan): {rec}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = cl.train_step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        snap = cl.snapshot_seconds[-1]
+        step_peak = torch.cuda.max_memory_allocated() / 1e9
+        log(f"  next step: loss {loss:.6f} ({loss!r}) step_s {dt:.3f} "
+            f"snapshot_s {snap:.3f} (share {snap / dt:.3f}) peak_mem_GB "
+            f"{step_peak:.2f}")
+        check(math.isfinite(loss), f"{name}: next loss not finite")
+        check(snapshot_matches_device(cl),
+              f"{name}: next step's ring snapshot != device shards")
+        out.append(dict(
+            name=name, wall_s=wall, measured_s=measured,
+            plan_s=rec["plan"], peak_mem_GB=peak,
+            modeled_s={k: rec[k] for k in ("detect", "communicator", "remap",
+                                           "migration", "verify",
+                                           "overlap_saved")},
+            rng_moves=rec["rng_moves"], degraded=rec["degraded"],
+            layer_assignment=cl.layer_assignment, dp_ranks=ranks,
+            stage_sizes=sizes, next_step_s=dt, next_snapshot_s=snap,
+            next_snapshot_share=snap / dt, next_step_peak_mem_GB=step_peak,
+            next_loss=loss))
+    launches = dict(_build.LAUNCHES)
+    log(f"launches over the 4 steps after recoveries: {launches}")
+    check(launches == RECOVERY_LAUNCHES,
+          f"launch counts {launches} != {RECOVERY_LAUNCHES}")
+    return launches, out
 
 
 def main() -> None:
@@ -657,12 +955,21 @@ def main() -> None:
     check(tiny_ssm["ssd_scan_sm90"] == 0 and tiny_ssm["ssd_scan"] > 0,
           f"tiny ssm twin (float32) must take the CUDA-core SSD route only: "
           f"{tiny_ssm}")
+    phase_tiny_recovery_twin("dense")
+    phase_tiny_recovery_twin("ssm")
+    shape_errs = kernel_recovery_shapes(gen)
+    for name, err in shape_errs.items():
+        recs[name]["recovery_shapes_max_abs_err"] = err
+    torch.cuda.empty_cache()
     paths = {"codeqwen1.5-7b": phase_train(
-        dataclasses.replace(cfg, num_layers=2), DENSE_LAUNCHES)}
+        dataclasses.replace(cfg, num_layers=2), DENSE_LAUNCHES)[0]}
     gc.collect()                 # free the dense cluster's host and card state
     torch.cuda.empty_cache()
-    paths["mamba2-2.7b"] = phase_train(
-        dataclasses.replace(mamba2_2p7b.config(), num_layers=4), SSM_LAUNCHES)
+    paths["mamba2-2.7b"], ssm = phase_train(
+        dataclasses.replace(mamba2_2p7b.config(), num_layers=4), SSM_LAUNCHES,
+        hw=H100_HW)
+    paths["mamba2-2.7b recovery"], recoveries = phase_recovery(ssm)
+    del ssm
     kernels = [dict(name=name, route="cuda", source=SOURCES[name][0],
                     replaces=SOURCES[name][1],
                     launches=sum(p[name] for p in paths.values()),
@@ -678,6 +985,7 @@ def main() -> None:
         "tiny-ssm twin (float32)"] = tiny_ssm["ssd_scan"]
     log(card)
     log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"recoveries": recoveries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -11,15 +11,15 @@ Mirrors the batched path of ``repro.core.fabric.snapshot.SnapshotPool``: the
 host side stays numpy (the paper's host-memory ring), every holder's state
 is one concatenated buffer per component, and one host Adam update (and,
 under ``compress="bf16"``, one compression round trip) covers the whole DP
-group.  CRC32 checksums of the host copies are stamped at every write.  The
-recovery half (verification, repair, rank loss) comes with the recovery
-slice of the port.
+group.  CRC32 checksums of the host copies are stamped at every write, and
+recovery re-hashes a shard before trusting it (``verify_and_repair``, with
+the reference's graceful-degradation tiers).
 """
 from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +30,10 @@ from ..statespace import COMPONENTS as _COMPONENTS
 
 GRAD_BYTES = 4        # fp32 gradient shard element
 ADAM_STATE_BYTES = 12  # master + mu + nu fp32
+VERIFY_BW = 5e9        # modeled host checksum scan rate (bytes/s)
+
+#: graceful-degradation ladder for :meth:`SnapshotPool.verify_and_repair`
+INTEGRITY_TIERS = ("verified", "rederived", "rebuilt", "lost")
 
 
 @dataclasses.dataclass
@@ -160,3 +164,95 @@ class SnapshotPool:
         for i in range(self.n):
             self.crc[i] = (self._checksum(self.host[i])
                            if self.host[i] is not None else None)
+
+    def lose_rank(self, i: int):
+        """Simulate fail-stop of worker i: its host snapshots die with it."""
+        self.host[i] = None
+        self.snap_step[i] = -1
+        self.crc[i] = None
+        self._cat = None    # survivors' views stay valid standalone arrays
+
+    def recover_shard(self, j: int) -> Optional[Dict[str, np.ndarray]]:
+        """Fetch failed worker j's state from its ring holder, if alive."""
+        return self.host[self.holder_of(j)]
+
+    # -- integrity (paper §5.1 "online verification") ----------------------
+
+    def corrupt_shard(self, j: int, component: str = "master",
+                      index: int = 0):
+        """Chaos/test hook: silently flip a mantissa bit in the *stored* copy
+        of worker j's snapshot (holder-side bit rot).  The write-time
+        checksum is deliberately NOT refreshed, so verification must catch
+        it."""
+        st = self.host[self.holder_of(j)]
+        if st is None or st[component].size == 0:
+            return
+        arr = st[component]
+        i = index % arr.size
+        raw = arr[i:i + 1].view(np.uint32)
+        raw ^= np.uint32(0x00400000)   # writes through the _cat view
+
+    def verify_shard(self, j: int) -> bool:
+        """Re-hash worker j's stored snapshot against its write-time
+        checksum.  True = intact.  Raises if the shard is absent."""
+        h = self.holder_of(j)
+        st = self.host[h]
+        assert st is not None, f"no snapshot for rank {j} (holder {h} dead)"
+        if not self.integrity or self.crc[h] is None:
+            return True
+        return self._checksum(st) == self.crc[h]
+
+    def verify_cost_seconds(self, j: int) -> float:
+        """Modeled wall time of the verification scan (deterministic)."""
+        st = self.host[self.holder_of(j)]
+        if st is None:
+            return 0.0
+        return sum(v.nbytes for v in st.values()) / VERIFY_BW
+
+    def verify_and_repair(
+        self, j: int,
+        device_state: Optional[Dict[str, object]] = None,
+        master_fallback: Optional[Callable[[], object]] = None,
+    ) -> Tuple[str, Optional[Dict[str, np.ndarray]]]:
+        """Online verification with graceful degradation (INTEGRITY_TIERS).
+
+        Returns ``(tier, state)``:
+
+        * ``verified``  — checksum matches; the stored shard is trusted.
+        * ``rederived`` — checksum failed but worker j is still alive
+          (``device_state`` given, e.g. a proactive drain): the snapshot is
+          re-copied bit-for-bit from the device (tensors cross to the host
+          here) and re-stamped.
+        * ``rebuilt``   — checksum failed and the device copy is gone: the
+          fp32 master is regenerated from ``master_fallback()`` (the
+          replicated model parameters) with **zeroed** Adam moments.
+        * ``lost``      — no repair source.
+
+        Repairs write standalone host arrays into the holder slot (detaching
+        it from the batched ``_cat`` buffer) and refresh the checksum.
+        """
+        h = self.holder_of(j)
+        st = self.host[h]
+        if st is None:
+            return "lost", None
+        if self.verify_shard(j):
+            return "verified", st
+        if device_state is not None:
+            self._install_repair(h, {c: _host(v)
+                                     for c, v in device_state.items()})
+            return "rederived", self.host[h]
+        if master_fallback is not None:
+            master = _host(master_fallback()).ravel()
+            self._install_repair(h, {"master": master,
+                                     "mu": np.zeros_like(master),
+                                     "nu": np.zeros_like(master)})
+            return "rebuilt", self.host[h]
+        return "lost", None
+
+    def _install_repair(self, holder: int, state: Dict[str, np.ndarray]):
+        # detach every slot from the shared _cat before replacing one slot's
+        # arrays, as lose_rank() does: views of survivors stay valid
+        self._cat = None
+        self.host[holder] = state
+        if self.integrity:
+            self.crc[holder] = self._checksum(state)

@@ -4,11 +4,14 @@ Mirrors ``repro.core.statespace``:
 
 * :class:`IntervalTable` — precomputed, memoized ownership tables for one
   ``(kind, layer_sizes, dp)``; the tables stay numpy int64.  ``gather`` /
-  ``scatter`` / ``shard_view`` walk the same precomputed contiguous-run
-  slices and work on torch tensors (on any device) and numpy arrays alike.
+  ``scatter`` / ``scatter_shard`` / ``shard_view`` / ``segments`` walk the
+  same precomputed contiguous-run slices and work on torch tensors (on any
+  device) and numpy arrays alike.
 * :class:`StageState` — one contiguous fp32 buffer per optimizer component
   (``master``/``mu``/``nu``) per stage, in **shard order**, as a tensor on
-  the cluster's device; every rank's ZeRO shard is a zero-copy view.
+  the cluster's device; every rank's ZeRO shard is a zero-copy view, and
+  recovery rewrites shards (``write_shard``) or adopts a new DP group
+  (``replace_shards``) without leaving the device.
 * :class:`EntryFlattener` — the ``ravel_pytree`` leaf order (dict keys
   sorted, lists in order, C order), so flat vectors equal the reference's.
 """
@@ -43,7 +46,7 @@ class IntervalTable:
 
     __slots__ = ("kind", "layer_sizes", "dp", "total", "entry_offsets",
                  "starts", "ends", "shard_sizes", "shard_offsets",
-                 "_runs", "_intervals")
+                 "_shard_index", "_runs", "_rank_runs", "_intervals")
 
     def __init__(self, kind: str, layer_sizes: Tuple[int, ...], dp: int):
         assert kind in ("contiguous", "interleaved"), kind
@@ -71,18 +74,37 @@ class IntervalTable:
         self.shard_sizes = lens.sum(axis=1)
         self.shard_offsets = np.concatenate(
             [np.zeros(1, np.int64), np.cumsum(self.shard_sizes)])
-        # contiguous-run copy list (stage_start, stage_end, shard_off), built
+        # contiguous-run copy lists (stage_start, stage_end, shard_off), built
         # once: gather/scatter are a few slice copies, on host or device
         runs: List[Tuple[int, int, int]] = []
+        rank_runs: List[List[Tuple[int, int, int]]] = []
         off = 0
         for j in range(self.dp):
+            mine: List[Tuple[int, int, int]] = []
+            local = 0
             for s, e in zip(starts[j], ends[j]):
                 s, e = int(s), int(e)
                 if e > s:
-                    runs.append((s, e, off))
-                    off += e - s
+                    runs.append((s, e, off + local))
+                    mine.append((s, e, local))
+                    local += e - s
+            rank_runs.append(mine)
+            off += local
         self._runs = runs
+        self._rank_runs = rank_runs
+        self._shard_index: Optional[np.ndarray] = None
         self._intervals: List[Optional[List[Interval]]] = [None] * self.dp
+
+    @property
+    def shard_index(self) -> np.ndarray:
+        """Shard-order -> stage-space permutation (lazy, numpy int64)."""
+        if self._shard_index is None:
+            pieces = [np.arange(s, e, dtype=np.int64)
+                      for s, e, _o in self._runs]
+            idx = np.concatenate(pieces) if pieces else np.zeros(0, np.int64)
+            assert idx.size == self.total
+            self._shard_index = idx
+        return self._shard_index
 
     def owner_intervals(self, rank: int) -> List[Interval]:
         """Intervals of the stage state space owned by ``rank`` (cached)."""
@@ -112,6 +134,12 @@ class IntervalTable:
             out[s:e] = flat[o:o + (e - s)]
         return out
 
+    def scatter_shard(self, j: int, shard, out):
+        """Write rank ``j``'s 1-D shard into the stage-space vector ``out``."""
+        for s, e, o in self._rank_runs[j]:
+            out[s:e] = shard[o:o + (e - s)]
+        return out
+
     def shard_slice(self, j: int) -> slice:
         return slice(int(self.shard_offsets[j]), int(self.shard_offsets[j + 1]))
 
@@ -122,6 +150,16 @@ class IntervalTable:
     def split(self, flat) -> list:
         """All ranks' shards as views, in rank order."""
         return [self.shard_view(flat, j) for j in range(self.dp)]
+
+    def segments(self, j: int, shard) -> Dict[Interval, Any]:
+        """Split rank ``j``'s 1-D shard into ``{interval: view}`` — the input
+        format of ``fabric.remap.LiveRemap.execute``."""
+        segs: Dict[Interval, Any] = {}
+        off = 0
+        for s, e in self.owner_intervals(j):
+            segs[(s, e)] = shard[off:off + (e - s)]
+            off += e - s
+        return segs
 
 
 _TABLE_CACHE: Dict[Tuple[str, Tuple[int, ...], int], IntervalTable] = {}
@@ -179,9 +217,39 @@ class StageState:
         tbl = self.table
         return {c: tbl.shard_view(self.flat[c], j) for c in COMPONENTS}
 
+    def write_shard(self, r: int, state: Dict[str, Any]) -> None:
+        """Overwrite rank ``r``'s shard in place (host arrays are copied to
+        the buffer's device)."""
+        j = self.dp_ranks.index(r)
+        tbl = self.table
+        for c in COMPONENTS:
+            dst = tbl.shard_view(self.flat[c], j)
+            dst.copy_(torch.as_tensor(state[c]).to(dst.device, torch.float32))
+
     def full(self, comp: str = "master") -> torch.Tensor:
         """All-gather equivalent: the stage's full state-space vector."""
         return self.table.scatter(self.flat[comp])
+
+    def replace_shards(self, new_ranks: List[int],
+                       shards_by_rank: Dict[int, Dict[str, torch.Tensor]]
+                       ) -> None:
+        """Adopt a new DP group whose per-rank shard tensors are given in
+        shard order (e.g. the output of ``LiveRemap.execute``).  Each
+        component's old buffer is dropped as soon as its new one exists, and
+        the new buffers stay on the old buffers' device."""
+        dev = self.flat["master"].device
+        for c in COMPONENTS:
+            parts = [shards_by_rank[r][c] for r in new_ranks
+                     if r in shards_by_rank]
+            for t in parts:
+                if t.device != dev:
+                    raise ValueError(f"shard of {c} on {t.device}, stage "
+                                     f"state on {dev}")
+            new = (torch.cat(parts) if parts else
+                   torch.zeros(0, dtype=torch.float32, device=dev))
+            self.flat[c] = new.float()
+            del parts, new
+        self.dp_ranks = list(new_ranks)
 
 
 # --------------------------------------------------------------------------

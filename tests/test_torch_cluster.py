@@ -81,16 +81,23 @@ def test_ring_snapshot_equals_device_shards_bitwise():
 
 
 def test_unported_options_and_recovery_raise():
+    """The seed path and dropout still raise; the control plane's ``hw`` /
+    ``mem_cap`` are accepted and recovery runs (it no longer raises),
+    returning the reference's record schema."""
+    from repro.core.cluster import _recovery_record
+    from repro_torch.core.cost_model import HardwareSpec
     cfg = tiny_config("dense", num_layers=2)
     with pytest.raises(NotImplementedError, match="fast_path"):
         VirtualCluster(cfg, 2, 2, fast_path=False, device="cpu", **KW)
     with pytest.raises(NotImplementedError, match="dropout"):
         VirtualCluster(tiny_config("dense", dropout_rate=0.1), 2, 2,
                        device="cpu", **KW)
-    cl = VirtualCluster(cfg, 2, 2, device="cpu", **KW)
-    for name in ("recover_fail_stop", "recover_scale_out", "drain_rank"):
-        with pytest.raises(NotImplementedError, match="recovery"):
-            getattr(cl, name)(0, 1)
+    hw = HardwareSpec(peak_flops=989e12, hbm_bw=3.35e12, hbm_bytes=80e9)
+    cl = VirtualCluster(cfg, 2, 2, device="cpu", hw=hw, mem_cap=40e9, **KW)
+    assert cl.hw is hw and cl.engine.mem_cap == 40e9
+    rec = cl.recover_fail_stop(0, 1)
+    assert set(rec) == set(_recovery_record())
+    assert cl.recoveries == [rec] and cl.stages[1].dp_ranks == [1]
     # the ssm family trains; its decode and prefill-with-state branches
     # wait for the serving slice
     from repro_torch.models.mamba import apply_mamba
