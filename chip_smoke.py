@@ -7,27 +7,37 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 1. device: the card's name and power limit (``nvidia-smi``); no card, exit 1;
 2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc),
-   and the tensor-core kernels' SASS (``cuobjdump``) checked: flash for
-   HGMMA in both forms and UTMALDG, the SSD scan's three kernels for HMMA
-   (bf16, float32 accumulators) and LDGSTS (cp.async) and all three for no
-   local-memory traffic (spills);
+   and the tensor-core kernels' SASS (``cuobjdump``) checked: bf16 flash
+   for HGMMA in both forms and UTMALDG, float32 flash for
+   HMMA.1688.F32.TF32 (mma.sync, TF32 in) with its instruction mix
+   printed, the SSD scan's three kernels for HMMA (bf16, float32
+   accumulators) and LDGSTS (cp.async), and the float32 flash and SSD
+   kernels for no local-memory traffic (spills);
 3. every kernel against its plain PyTorch version on the card at the main
    paths' shapes (rmsnorm [4096, 4096]; flash attention [1, 4096, 32, 128]
-   causal on both routes: float32, and bf16 at head_dim 32, on the CUDA
-   cores; bf16 on the tensor cores MHA and GQA, plus head_dim 64, ragged S
-   4000, bidirectional, a peaked softmax and strided projection views; fused AdamW bitwise
-   against the numpy oracle over 3 steps, at n % 4 != 0 and on views off a
-   16-byte boundary; the SSD scan at [1, 4096, 80, 64] with n 128, chunk
+   causal on all three routes: float32 on the 3xTF32 tensor-core route MHA
+   and GQA, plus head_dim 16 and 64, ragged S 4000, bidirectional and a
+   peaked softmax, each also against a float64 evaluation, with the
+   CUDA-core kernel on the main case's inputs; bf16 at head_dim 32 on the
+   CUDA cores; bf16 on the tensor cores MHA and GQA, plus head_dim 64,
+   ragged S 4000, bidirectional, a peaked softmax and strided projection
+   views; fused AdamW bitwise against the numpy oracle over 3 steps, at
+   n % 4 != 0 and on views off a 16-byte boundary; the SSD scan at [1, 4096, 80, 64] with n 128, chunk
    256, against the sequential oracle: bf16 on the tensor-core route and,
    on the same inputs, the CUDA-core kernel, fp32 on the CUDA-core route,
    with order-1 and small step sizes, and with 8 groups, its fp32 cases
    also against the oracle in float64), with kernel, plain-version and
-   library-call times (rmsnorm and ``F.rms_norm`` interleaved; the SSD scan
-   beside ``ref.ssd_chunked`` in bf16, composed of cuBLAS products);
+   library-call times (rmsnorm and ``F.rms_norm``, each flash route and
+   ``F.scaled_dot_product_attention`` interleaved; the SSD scan beside
+   ``ref.ssd_chunked`` in bf16, composed of cuBLAS products);
 4. a tiny dense and a tiny ssm cluster on the card against the same
    clusters on the CPU, for 3 steps each, within the reference's
    kernel-consistency bounds (the dense twin, float32 at head_dim 16,
-   must take the CUDA-core flash route only); then both twins through the
+   must take the 3xTF32 flash route only); the same in bf16 at the
+   smallest widths of the tensor-core routes (dense head_dim 64; ssm
+   headdim 64, state 64, chunk 64; seq 128), within the bf16 twins'
+   bound, every flash or SSD launch on those routes; then both float32
+   twins through the
    recovery sequence of ``tests/test_torch_recovery.py`` (fail-stop found
    by the probes with a corrupted snapshot, scale-out, fail-slow with a
    layer migration, drain with a corrupted snapshot, a two-rank burst,
@@ -82,7 +92,7 @@ from repro_torch.core.events import ElasticEvent, EventKind  # noqa: E402
 from repro_torch.core.fabric.snapshot import SnapshotPool  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_cuda, uses_sm90)
+    flash_attention_cuda, flash_attention_cuda_cores, uses_sm90, uses_tf32)
 from repro_torch.kernels.fused_adam import fused_adam_cuda_  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
@@ -94,18 +104,37 @@ from repro_torch.weights import params_to_numpy  # noqa: E402
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# TF32 on the tensor cores, dense: float32-accurate products there take
+# three TF32 products each (the float32 flash bound)
+PEAK_TF32_OPS_PER_S = 494.7e12
 # the cost model of the ssm phases: the data sheet's figures; link_bw, mfu
 # and the frequencies keep the reference's model defaults
 H100_HW = HardwareSpec(peak_flops=PEAK_OPS_PER_S[torch.bfloat16],
                        hbm_bw=HBM_BYTES_PER_S, hbm_bytes=80e9)
 # kernel-consistency bounds of the reference (core/invariants.py)
 LOSS_RTOL, LOSS_ATOL, PARAM_RTOL, PARAM_ATOL0 = 1e-4, 1e-6, 1e-4, 1e-5
+# the bf16 twins' bound (tests/test_torch_bf16_twin.py): both sides round
+# activations and gradients to bf16, at different places, so the float32
+# bounds above do not apply.  Losses within one bf16 spacing (2**-7
+# relative); master/mu/nu within 2**-7 relative on top of the step-sign
+# allowance PARAM_ATOL0 + 2*lr*opt_step
+BF16_LOSS_RTOL, BF16_PARAM_RTOL = 2.0 ** -7, 2.0 ** -7
+# the bf16 tiny configurations on the tensor-core routes: flash_attention_sm90
+# (head_dim 64) and ssd_scan_sm90 (headdim 64, state 64, chunk 64)
+BF16_TWINS = {
+    "dense": dict(dtype="bfloat16", d_model=256),
+    "ssm": dict(dtype="bfloat16", ssm_headdim=64, ssm_state=64,
+                ssm_chunk=64, num_layers=2),
+}
 
 SOURCES = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:22"),
     "flash_attention_sm90": (
         "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+        "src/repro/kernels/flash_attention.py:78"),
+    "flash_attention_tf32": (
+        "src/repro_torch/kernels/csrc/flash_attention_tf32.cu",
         "src/repro/kernels/flash_attention.py:78"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:78"),
@@ -120,8 +149,14 @@ DESIGNS = {
     "flash_attention_sm90": "bf16, head_dim 64/128: wgmma m64n128k16 for "
                             "Q.K^T and register-A wgmma for P.V (P as bf16 "
                             "hi + lo), K/V by TMA in a 2-stage mbarrier ring",
-    "flash_attention": "float32, and bf16 at head_dim 16/32: float32 FMAs on "
-                       "the CUDA cores",
+    "flash_attention_tf32": "float32, head_dim 16-128: mma.sync m16n8k8 as "
+                            "3xTF32 (hi/lo split at fragment load), P.V "
+                            "from the score accumulators, short fresh "
+                            "accumulator chains, K/V by cp.async in two "
+                            "stages",
+    "flash_attention": "bf16 at head_dim 16/32, and float32 only when "
+                       "launched explicitly: float32 FMAs on the CUDA "
+                       "cores",
     "ssd_scan_sm90": "bf16, p <= 64, n <= 128, chunk % 64 == 0: "
                      "chunk-parallel (chunk_state, state_pass, chunk_out), "
                      "mma.sync m16n8k16 with float32 operands as three bf16 "
@@ -133,15 +168,15 @@ DESIGNS = {
 # flash launch of the bf16 models takes the tensor-core kernel
 DENSE_LAUNCHES = {"rmsnorm": 60, "flash_attention": 0, "fused_adam": 6,
                   "ssd_scan": 0, "flash_attention_sm90": 24,
-                  "ssd_scan_sm90": 0}
+                  "ssd_scan_sm90": 0, "flash_attention_tf32": 0}
 SSM_LAUNCHES = {"rmsnorm": 108, "flash_attention": 0, "fused_adam": 6,
                 "ssd_scan": 0, "flash_attention_sm90": 0,
-                "ssd_scan_sm90": 48}
+                "ssd_scan_sm90": 48, "flash_attention_tf32": 0}
 # exact launches over the 4 steps of phase 7: after a shrink each step is 2
 # items of batch 2, after the scale-out 4 items of batch 1
 RECOVERY_LAUNCHES = {"rmsnorm": 108, "flash_attention": 0, "fused_adam": 8,
                      "ssd_scan": 0, "flash_attention_sm90": 0,
-                     "ssd_scan_sm90": 48}
+                     "ssd_scan_sm90": 48, "flash_attention_tf32": 0}
 # phase 7: (name, recovery, layer_assignment, dp_ranks, per_rank_mbs after)
 # The fail-stop leaves stage 1 one rank wide, so the engine's graph plan
 # moves layer 2 to stage 0; the fail-slow of rank (0, 0) moves layers 1 and
@@ -224,9 +259,11 @@ def device_us_by_kernel(fn, iters: int) -> dict:
     return out
 
 
-def bound(nbytes: float, ops_: float, dtype) -> tuple:
+def bound(nbytes: float, ops_: float, dtype, peak: float = None) -> tuple:
+    """The larger of the bytes' time at the HBM rate and the operations'
+    at ``peak`` (default: the dtype's peak), in ms, and which it is."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops_ / PEAK_OPS_PER_S[dtype] * 1e3
+    t_ops = ops_ / (peak or PEAK_OPS_PER_S[dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -235,6 +272,14 @@ def within(a: torch.Tensor, b: torch.Tensor, tier: dict) -> tuple:
     err = (a - b).abs()
     ok = bool((err <= tier["atol"] + tier["rtol"] * b.abs()).all())
     return ok, float(err.max())
+
+
+def tier_misses(a: torch.Tensor, b: torch.Tensor, tier: dict) -> tuple:
+    """Elements of ``a`` outside ``tier`` of ``b`` (compared in float64),
+    and the largest error as a share of its element's tolerance."""
+    err = (a.double() - b.double()).abs()
+    ratio = err / (tier["atol"] + tier["rtol"] * b.double().abs())
+    return int((ratio > 1).sum()), float(ratio.max())
 
 
 # ---------------------------------------------------------------------------
@@ -266,23 +311,33 @@ def phase_build() -> None:
 
 def sass_check() -> None:
     """The tensor-core kernels' machine code (``cuobjdump -sass`` of the
-    built library).  Flash must hold HGMMA for both products (shared-memory
-    A for Q.K^T, register A for P.V) and UTMALDG (TMA loads).  The SSD
-    scan's chunk_state and chunk_out must hold HMMA.16816.F32.BF16
-    (mma.sync, bf16 in, float32 accumulators) and LDGSTS (cp.async), and
-    none of its three kernels may touch local memory (LDL/STL: spills)."""
+    built library).  bf16 flash must hold HGMMA for both products
+    (shared-memory A for Q.K^T, register A for P.V) and UTMALDG (TMA
+    loads).  float32 flash (one kernel per head_dim) must hold
+    HMMA.1688.F32.TF32 (mma.sync, TF32 in, float32 accumulators) and
+    LDGSTS, and its head_dim-128 kernel's instruction mix is printed.  The
+    SSD scan's chunk_state and chunk_out must hold HMMA.16816.F32.BF16
+    (mma.sync, bf16 in, float32 accumulators) and LDGSTS (cp.async).  None
+    of the float32 flash and SSD kernels may touch local memory (LDL/STL:
+    spills)."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(_build.build())],
                           capture_output=True, text=True, check=True).stdout
-    counts, fn = {}, None
+    counts, mix, fn = {}, {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             counts[fn] = {"HGMMA": 0, "HGMMA register A": 0, "UTMALDG": 0,
-                          "HMMA bf16": 0, "LDGSTS": 0, "LDL/STL": 0}
+                          "HMMA bf16": 0, "HMMA tf32": 0, "LDGSTS": 0,
+                          "LDL/STL": 0}
+            mix[fn] = {}
             continue
         if fn is None:
             continue
+        op = re.search(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if op:
+            mix[fn][op.group(1)] = mix[fn].get(op.group(1), 0) + 1
         hgmma = re.search(r"HGMMA\.\S+\s+[^,]+,\s*([^,\s]+)", line)
         if hgmma:
             counts[fn]["HGMMA"] += 1
@@ -290,6 +345,8 @@ def sass_check() -> None:
         counts[fn]["UTMALDG"] += "UTMALDG" in line
         counts[fn]["HMMA bf16"] += bool(
             re.search(r"\bHMMA\.16816\.F32\.BF16\b", line))
+        counts[fn]["HMMA tf32"] += bool(
+            re.search(r"\bHMMA\.1688\.F32\.TF32\b", line))
         counts[fn]["LDGSTS"] += bool(re.search(r"\bLDGSTS\b", line))
         counts[fn]["LDL/STL"] += bool(re.search(r"\b(LDL|STL)\b", line))
     sm90 = {f: c for f, c in counts.items() if "flash_fwd_sm90_kernel" in f}
@@ -299,6 +356,21 @@ def sass_check() -> None:
         log(f"  SASS {f[:90]}: {c}")
         check(c["HGMMA"] > c["HGMMA register A"] > 0 and c["UTMALDG"] > 0,
               f"{f}: HGMMA for both products and UTMALDG expected: {c}")
+    tf32 = {f: c for f, c in counts.items() if "flash_fwd_tf32_kernel" in f}
+    check(len(tf32) == 4, f"expected 4 float32 tensor-core flash kernels "
+                          f"(head_dim 16-128) in the SASS, found {len(tf32)}")
+    for f, c in tf32.items():
+        hd = re.search(r"flash_fwd_tf32_kernelILi(\d+)E", f)
+        log(f"  SASS flash_fwd_tf32_kernel<{hd.group(1) if hd else f}>: "
+            f"HMMA.1688.F32.TF32 {c['HMMA tf32']}, LDGSTS {c['LDGSTS']}, "
+            f"LDL/STL {c['LDL/STL']}")
+        check(c["HMMA tf32"] > 0 and c["LDGSTS"] > 0 and c["LDL/STL"] == 0,
+              f"{f}: HMMA.1688.F32.TF32 and LDGSTS and no LDL/STL expected: "
+              f"{c}")
+        if hd and hd.group(1) == "128":
+            top = sorted(mix[f].items(), key=lambda kv: -kv[1])[:14]
+            log("  flash_fwd_tf32_kernel<128> instruction mix (static "
+                "count): " + ", ".join(f"{k} {v}" for k, v in top))
     for kernel, products in SSD_SM90_KERNELS.items():
         found = [(f, c) for f, c in counts.items() if kernel in f]
         check(len(found) == 1, f"expected one {kernel} in the SASS, found "
@@ -344,15 +416,32 @@ def kernel_rmsnorm(gen) -> dict:
 
 def kernel_flash(gen) -> dict:
     """Flash attention at codeqwen's widths against the plain version under
-    the unchanged tiers: the CUDA-core route (float32, and bf16 at head_dim
-    32) and the tensor-core route (bf16: MHA as on the main path, GQA,
-    head_dim 64, ragged S, bidirectional, a peaked softmax, and q/k/v as
-    strided views of one fused projection).  Returns the records of both
-    kernels."""
+    the unchanged tiers, on all three routes: float32 on the 3xTF32
+    tensor-core route (MHA as on a float32 run of the model, GQA, head_dim
+    16 and 64, ragged S, bidirectional, a peaked softmax), bf16 at head_dim
+    32 on the CUDA cores, and bf16 on the wgmma route (MHA as on the main
+    path, GQA, head_dim 64, ragged S, bidirectional, a peaked softmax, and
+    q/k/v as strided views of one fused projection).
+
+    Every float32 case is also held to the ``flash_attention`` tier against
+    the plain version evaluated in float64 on the same inputs.  At q x 4
+    the float32 plain version is itself as far from that evaluation as the
+    tier (its scores carry float32 rounding of dot products up to ~200), so
+    that case is gated against float64 alone and its misses against the
+    float32 plain version are printed beside the plain version's own.  On
+    the main float32 case the CUDA-core kernel runs on the same inputs.
+    Returns the records of the float32 route, the CUDA-core kernel and the
+    bf16 route."""
     B, S, H, hd = 1, 4096, 32, 128
     recs = {}
     cases = (  # dtype, S, Hkv, hd, causal, q scale, layout
         (torch.float32, S, H, hd, True, 1.0, "dense"),
+        (torch.float32, S, 8, hd, True, 1.0, "dense"),
+        (torch.float32, S, H, 16, True, 1.0, "dense"),
+        (torch.float32, S, H, 64, True, 1.0, "dense"),
+        (torch.float32, 4000, H, hd, True, 1.0, "dense"),
+        (torch.float32, S, H, hd, False, 1.0, "dense"),
+        (torch.float32, S, H, hd, True, 4.0, "dense"),
         (torch.bfloat16, S, H, 32, True, 1.0, "dense"),
         (torch.bfloat16, S, H, hd, True, 1.0, "dense"),
         (torch.bfloat16, S, 8, hd, True, 1.0, "dense"),
@@ -363,8 +452,9 @@ def kernel_flash(gen) -> dict:
         (torch.bfloat16, S, 8, hd, True, 1.0, "projection"),
     )
     for dtype, s, Hkv, d, causal, qscale, layout in cases:
-        tier = "flash_attention" if dtype == torch.float32 \
+        tier_name = "flash_attention" if dtype == torch.float32 \
             else "flash_attention_bf16"
+        tier = ops.TOLERANCE_TIERS[tier_name]
         if layout == "projection":   # one [B, S, (H + 2 Hkv) hd] activation
             x = torch.randn(B, s, (H + 2 * Hkv) * d, generator=gen,
                             device="cuda").to(dtype)
@@ -376,36 +466,89 @@ def kernel_flash(gen) -> dict:
                                       device="cuda")).to(dtype)
             k, v = (torch.randn(B, s, Hkv, d, generator=gen,
                                 device="cuda").to(dtype) for _ in "kv")
-        route = "sm90" if uses_sm90(dtype, d) else "cuda-cores"
+        route = "sm90" if uses_sm90(dtype, d) else \
+            "tf32" if uses_tf32(dtype, d) else "cuda-cores"
         name = (f"flash {route} {dtype} S={s} H={H} Hkv={Hkv} hd={d} "
                 f"causal={causal} q*{qscale:g} {layout}")
         want = ref.gqa_attention_reference(q, k, v, causal=causal)
         o = flash_attention_cuda(q, k, v, causal)
-        ok, err = within(o, want, ops.TOLERANCE_TIERS[tier])
-        log(f"{name}: max_abs_err {err:.3e} tier {tier} ok={ok}")
-        check(ok, f"{name} outside {tier}")
+        ok, err = within(o, want, tier)
+        if dtype == torch.float32:
+            want64 = ref.gqa_attention_reference(
+                q.double(), k.double(), v.double(), causal=causal)
+            ok64, err64 = within(o, want64, tier)
+            miss, worst = tier_misses(o, want, tier)
+            miss64, worst64 = tier_misses(o, want64, tier)
+            pmiss64, pworst64 = tier_misses(want, want64, tier)
+            log(f"{name}: max_abs_err {err:.3e} ({miss} outside {tier_name},"
+                f" worst {worst:.3f} of it); vs float64 {err64:.3e} "
+                f"({miss64}, worst {worst64:.3f}); the plain version vs "
+                f"float64: {pmiss64} outside, worst {pworst64:.3f}")
+            check(ok64, f"{name} outside {tier_name} of float64")
+            if qscale == 1.0:
+                check(ok, f"{name} outside {tier_name}")
+            del want64
+        else:
+            log(f"{name}: max_abs_err {err:.3e} tier {tier_name} ok={ok}")
+            check(ok, f"{name} outside {tier_name}")
+        # time the main case of each tensor-core route: MHA, causal
         if layout != "dense" or s != S or d != hd or not causal \
-                or qscale != 1.0:
+                or qscale != 1.0 or Hkv != H or route == "cuda-cores":
             del q, k, v, o, want
             continue
-        ms = time_ms(lambda: flash_attention_cuda(q, k, v, True), 50)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        # kernel and library call in turn, 5 rounds of 10 launches
+        med = interleaved_medians(
+            {"kernel": lambda: flash_attention_cuda(q, k, v, True),
+             "library": lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True)}, 5, 10)
         plain = time_ms(lambda: ref.gqa_attention_reference(
             q, k, v, causal=True), 3)
-        rep = H // Hkv
-        qt, kt, vt = (t.transpose(1, 2) for t in (
-            q, k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)))
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), 50)
         pairs = B * H * S * (S + 1) // 2
         nbytes = (2 * B * S * H * hd + 2 * B * S * Hkv * hd) * q.element_size()
-        b, by = bound(nbytes, 4 * hd * pairs, dtype)
-        log(f"  ms {ms:.4f} plain_ms {plain:.3f} library_ms {lib:.4f} "
-            f"bound_ms {b:.4f} ({by})")
-        if Hkv == H:    # the main path's case of each route: MHA
-            recs["flash_attention_sm90" if route == "sm90"
-                 else "flash_attention"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                bound_by=by, library_ms=lib)
+        if route == "tf32":
+            # float32 accuracy on the tensor cores: three TF32 products
+            # per multiply-add; the CUDA cores' float32 bound beside it
+            b, by = bound(nbytes, 3 * 4 * hd * pairs, dtype,
+                          PEAK_TF32_OPS_PER_S)
+            b_cores, _ = bound(nbytes, 4 * hd * pairs, dtype)
+            cores = flash_attention_cuda_cores(q, k, v, True)
+            ok_c, err_c = within(cores, want, tier)
+            log(f"  CUDA-core kernel on the same inputs: max_abs_err "
+                f"{err_c:.3e} ok={ok_c}")
+            check(ok_c, "the CUDA-core float32 flash kernel outside "
+                        "flash_attention")
+            cores_ms = time_ms(lambda: flash_attention_cuda_cores(
+                q, k, v, True), 10)
+            by_kernel = device_us_by_kernel(
+                lambda: flash_attention_cuda(q, k, v, True), 10)
+            log(f"  ms (medians of 5 interleaved rounds of 10): 3xTF32 "
+                f"{med['kernel']:.4f}, F.scaled_dot_product_attention "
+                f"{med['library']:.4f}; CUDA-core kernel {cores_ms:.4f}; "
+                f"plain_ms {plain:.3f}; bound_ms {b:.4f} ({by}, three TF32 "
+                f"products at {PEAK_TF32_OPS_PER_S / 1e12:g} TFLOP/s; "
+                f"{b_cores:.4f} at the CUDA cores' "
+                f"{PEAK_OPS_PER_S[dtype] / 1e12:g})")
+            log("  3xTF32 route by kernel, us a call: " + ", ".join(
+                f"{k_} {v_:.1f}" for k_, v_ in by_kernel.items()))
+            common = dict(plain_ms=plain, bound_ms=b, bound_by=by,
+                          library_ms=med["library"],
+                          cuda_core_bound_ms=b_cores)
+            recs["flash_attention_tf32"] = dict(
+                max_abs_err=err, ms=med["kernel"],
+                max_abs_err_float64=err64, device_us_by_kernel=by_kernel,
+                **common)
+            recs["flash_attention"] = dict(max_abs_err=err_c, ms=cores_ms,
+                                           **common)
+            del cores
+        else:
+            b, by = bound(nbytes, 4 * hd * pairs, dtype)
+            log(f"  ms {med['kernel']:.4f} (median of 5 interleaved rounds "
+                f"of 10) plain_ms {plain:.3f} library_ms "
+                f"{med['library']:.4f} bound_ms {b:.4f} ({by})")
+            recs["flash_attention_sm90"] = dict(
+                max_abs_err=err, ms=med["kernel"], plain_ms=plain,
+                bound_ms=b, bound_by=by, library_ms=med["library"])
         del q, k, v, o, want, qt, kt, vt
     return recs
 
@@ -656,34 +799,43 @@ def kernel_recovery_shapes(gen) -> dict:
     return errs
 
 
-def phase_tiny_twin(family: str) -> dict:
-    """3 steps of a tiny float32 cluster on the card and on the CPU; returns
-    the card's launch counts."""
-    cfg = tiny_config(family)
-    kw = dict(global_batch=8, num_micro=2, seq_len=16)
+def phase_tiny_twin(family: str, bf16: bool = False) -> dict:
+    """3 steps of a tiny cluster on the card and on the CPU: float32 within
+    the reference's kernel-consistency bounds, or the bf16 configuration
+    of ``BF16_TWINS`` (seq 128) within the bf16 twins' bound; returns the
+    card's launch counts."""
+    name = f"tiny {family} twin ({'bf16' if bf16 else 'float32'})"
+    cfg = tiny_config(family, **(BF16_TWINS[family] if bf16 else {}))
+    kw = dict(global_batch=8, num_micro=2, seq_len=128 if bf16 else 16)
     cpu = VirtualCluster(cfg, 2, 2, device="cpu", **kw)
-    init = params_to_numpy(cpu.stem, cpu.layer_params, cpu.head)
+    # the CPU cluster's own tensors: bf16 leaves stay bf16 on the card
+    init = (cpu.stem, cpu.layer_params, cpu.head)
     gpu = VirtualCluster(cfg, 2, 2, device="cuda", init_params=init, **kw)
+    check(all(a.dtype == b.dtype for a, b in zip(gpu._leaves, cpu._leaves)),
+          f"{name}: parameter dtypes differ between card and CPU")
+    loss_ok = (lambda a, b: abs(a - b) <= BF16_LOSS_RTOL * abs(b)) if bf16 \
+        else (lambda a, b: abs(a - b) <= LOSS_ATOL + LOSS_RTOL * abs(b))
+    rtol = BF16_PARAM_RTOL if bf16 else PARAM_RTOL
     _build.reset_launch_counts()
     for step in range(3):
         a, b = gpu.train_step(), cpu.train_step()
-        check(abs(a - b) <= LOSS_ATOL + LOSS_RTOL * abs(b),
-              f"tiny {family} twin step {step}: loss {a!r} vs cpu {b!r}")
+        check(math.isfinite(a) and loss_ok(a, b),
+              f"{name} step {step}: loss {a!r} vs cpu {b!r}")
         atol = PARAM_ATOL0 + 2.0 * gpu.adam.lr * gpu.opt_step
         worst = 0.0
         for sg, sc in zip(gpu.stages, cpu.stages):
             check(sg.sizes == sc.sizes and sg.entries == sc.entries,
-                  f"tiny {family} twin stage structure differs")
+                  f"{name} stage structure differs")
             for c in ("master", "mu", "nu"):
                 x, y = sg.full(c).cpu(), sc.full(c)
-                check(torch.allclose(x, y, rtol=PARAM_RTOL, atol=atol),
-                      f"tiny {family} twin step {step}: stage {c} beyond "
-                      f"bounds")
+                check(torch.allclose(x, y, rtol=rtol, atol=atol),
+                      f"{name} step {step}: stage {c} beyond bounds")
                 worst = max(worst, float((x - y).abs().max()))
-        log(f"tiny {family} twin step {step}: loss card {a:.7f} cpu {b:.7f} "
-            f"state max_abs_diff {worst:.3e} (atol {atol:.1e})")
+        log(f"{name} step {step}: loss card {a:.7f} cpu {b:.7f} "
+            f"state max_abs_diff {worst:.3e} (atol {atol:.1e}, rtol "
+            f"{rtol:.2e})")
     counts = dict(_build.LAUNCHES)
-    log(f"tiny {family} twin launches on the card: {counts}")
+    log(f"{name} launches on the card: {counts}")
     return counts
 
 
@@ -724,11 +876,12 @@ def _twin_op(cl: VirtualCluster, op: tuple):
                                        freq=1.1))
 
 
-def phase_tiny_recovery_twin(family: str) -> None:
+def phase_tiny_recovery_twin(family: str) -> dict:
     """The tiny float32 cluster (dp=4, pp=2, global batch 16) on the card
     and on the CPU through ``TWIN_SEQUENCE``: records, remap plans,
     integrity tiers and layouts equal exactly, losses and state within the
-    kernel-consistency bounds after every step."""
+    kernel-consistency bounds after every step.  Returns the card's launch
+    counts."""
     cfg = tiny_config(family, num_layers=8 if family == "dense" else 4)
     kw = dict(global_batch=16, num_micro=2, seq_len=16)
     cpu = VirtualCluster(cfg, 4, 2, device="cpu", **kw)
@@ -739,6 +892,7 @@ def phase_tiny_recovery_twin(family: str) -> None:
     for dev, cl in (("cpu", cpu), ("cuda", gpu)):
         _pin_planner_clock(cl, logs[dev])
     orig = SnapshotPool.verify_and_repair
+    _build.reset_launch_counts()
     try:
         for k, op in enumerate(TWIN_SEQUENCE):
             where = f"tiny {family} recovery twin op {k} {op}"
@@ -782,10 +936,13 @@ def phase_tiny_recovery_twin(family: str) -> None:
         SnapshotPool.verify_and_repair = orig
     check("rebuilt" in tiers["cuda"] and "rederived" in tiers["cuda"],
           f"tiny {family} recovery twin: tiers {tiers['cuda']}")
+    counts = dict(_build.LAUNCHES)
     log(f"tiny {family} recovery twin: {len(gpu.recoveries)} recoveries, "
         f"{len(logs['cuda'])} remap plans, tiers {tiers['cuda']}, layout "
         f"{gpu.layer_assignment}, dp_ranks "
-        f"{[s.dp_ranks for s in gpu.stages]}: card == cpu")
+        f"{[s.dp_ranks for s in gpu.stages]}: card == cpu; launches "
+        f"{counts}")
+    return counts
 
 
 def snapshot_matches_device(cl: VirtualCluster) -> bool:
@@ -948,15 +1105,32 @@ def main() -> None:
     recs.update(kernel_ssd(gen))
     torch.cuda.empty_cache()
     tiny = phase_tiny_twin("dense")
-    check(tiny["flash_attention_sm90"] == 0 and tiny["flash_attention"] > 0,
-          f"tiny dense twin (float32, head_dim 16) must take the CUDA-core "
+    check(tiny["flash_attention_tf32"] > 0 and tiny["flash_attention"] == 0
+          and tiny["flash_attention_sm90"] == 0,
+          f"tiny dense twin (float32, head_dim 16) must take the 3xTF32 "
           f"flash route only: {tiny}")
     tiny_ssm = phase_tiny_twin("ssm")
     check(tiny_ssm["ssd_scan_sm90"] == 0 and tiny_ssm["ssd_scan"] > 0,
           f"tiny ssm twin (float32) must take the CUDA-core SSD route only: "
           f"{tiny_ssm}")
-    phase_tiny_recovery_twin("dense")
-    phase_tiny_recovery_twin("ssm")
+    tiny_bf16 = phase_tiny_twin("dense", bf16=True)
+    check(tiny_bf16["flash_attention_sm90"] > 0
+          and tiny_bf16["flash_attention"] == 0
+          and tiny_bf16["flash_attention_tf32"] == 0,
+          f"tiny dense twin (bf16, head_dim 64) must take the wgmma flash "
+          f"route only: {tiny_bf16}")
+    tiny_ssm_bf16 = phase_tiny_twin("ssm", bf16=True)
+    check(tiny_ssm_bf16["ssd_scan_sm90"] > 0
+          and tiny_ssm_bf16["ssd_scan"] == 0,
+          f"tiny ssm twin (bf16, headdim 64, state 64, chunk 64) must take "
+          f"the tensor-core SSD route only: {tiny_ssm_bf16}")
+    twin_dense = phase_tiny_recovery_twin("dense")
+    check(twin_dense["flash_attention_tf32"] > 0
+          and twin_dense["flash_attention"] == 0
+          and twin_dense["flash_attention_sm90"] == 0,
+          f"tiny dense recovery twin (float32) must take the 3xTF32 flash "
+          f"route only: {twin_dense}")
+    twin_ssm = phase_tiny_recovery_twin("ssm")
     shape_errs = kernel_recovery_shapes(gen)
     for name, err in shape_errs.items():
         recs[name]["recovery_shapes_max_abs_err"] = err
@@ -976,13 +1150,19 @@ def main() -> None:
                     launches_by_path={k: p[name] for k, p in paths.items()},
                     **({"design": DESIGNS[name]} if name in DESIGNS else {}),
                     **recs[name]) for name in SOURCES]
-    # the CUDA-core flash and SSD kernels are off the main paths (they
-    # train in bf16); the tiny float32 twins are where they run
+    # the float32 flash route and the CUDA-core SSD kernel are off the main
+    # paths (they train in bf16); the tiny float32 twins are where they
+    # run.  The bf16 twins run the tensor-core routes at small widths.
     by_name = {k["name"]: k for k in kernels}
-    by_name["flash_attention"]["launches_by_path"][
-        "tiny-dense twin (float32)"] = tiny["flash_attention"]
-    by_name["ssd_scan"]["launches_by_path"][
-        "tiny-ssm twin (float32)"] = tiny_ssm["ssd_scan"]
+    for name, path, counts in (
+            ("flash_attention_tf32", "tiny-dense twin (float32)", tiny),
+            ("flash_attention_tf32", "tiny-dense recovery twin (float32)",
+             twin_dense),
+            ("ssd_scan", "tiny-ssm twin (float32)", tiny_ssm),
+            ("ssd_scan", "tiny-ssm recovery twin (float32)", twin_ssm),
+            ("flash_attention_sm90", "tiny-dense twin (bf16)", tiny_bf16),
+            ("ssd_scan_sm90", "tiny-ssm twin (bf16)", tiny_ssm_bf16)):
+        by_name[name]["launches_by_path"][path] = counts[name]
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"recoveries": recoveries}))

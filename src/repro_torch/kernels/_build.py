@@ -40,6 +40,8 @@ SIGNATURES = {
                               _I, _F, _I, _P],
     "repro_flash_attention_sm90": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    *[_LL] * 9, _I, _F, _P],
+    "repro_flash_attention_tf32": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   *[_LL] * 9, _I, _F, _P],
     "repro_fused_adam": [_P, _P, _P, _P, _LL, _F, _F, _F, _F, _F, _F, _F, _F,
                          _F, _P],
     "repro_ssd_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -49,7 +51,8 @@ SIGNATURES = {
 #: kernel launches by kernel name, added to only by :func:`launch`
 LAUNCHES: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
                             "fused_adam": 0, "ssd_scan": 0,
-                            "flash_attention_sm90": 0, "ssd_scan_sm90": 0}
+                            "flash_attention_sm90": 0, "ssd_scan_sm90": 0,
+                            "flash_attention_tf32": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 last_build_seconds: float = 0.0

@@ -1,7 +1,9 @@
 // Flash-attention forward for Hopper (sm_90a) on the CUDA cores: the route
-// for float32 inputs and for bf16 at head_dim 16 or 32.  bf16 at head_dim 64
-// or 128 (every model the port trains) takes the tensor-core kernel in
-// flash_attention_sm90.cu.
+// for bf16 at head_dim 16 or 32.  bf16 at head_dim 64 or 128 (every model
+// the port trains) takes the tensor-core kernel in flash_attention_sm90.cu,
+// and float32 the 3xTF32 tensor-core kernel in flash_attention_tf32.cu; the
+// float32 kernels here run only when launched explicitly
+// (kernels/flash_attention.py:flash_attention_cuda_cores).
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:
 // flash_attention_kernel (body _flash_kernel), together with the GQA repeat
@@ -14,9 +16,9 @@
 // needs ~4*hd flops per (query, key) pair below the diagonal, 137 GFLOP, which
 // is ~139 us at the 989 TFLOP/s of bf16 tensor cores (the q, k, v and o bytes,
 // 134 MB, take ~40 us); in float32 against the 67 TFLOP/s of the CUDA cores
-// it is ~2.05 ms.  This kernel runs its products as float32 FMAs on the CUDA
-// cores, so it sits well above either bound; redesigning it for float32
-// inputs is later work.
+// it is ~2.05 ms, and 0.834 ms as three TF32 products on the tensor cores
+// (flash_attention_tf32.cu).  This kernel runs its products as float32 FMAs
+// on the CUDA cores, so it sits well above either bound.
 //
 // Design: one 256-thread block per (batch*head, 64-row q tile).  Four
 // neighbouring threads share a q row, each owning every fourth head dim, so

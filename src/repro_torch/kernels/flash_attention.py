@@ -1,5 +1,6 @@
 """Flash attention — launchers of the CUDA kernels
-``csrc/flash_attention_sm90.cu`` and ``csrc/flash_attention.cu``.
+``csrc/flash_attention_sm90.cu``, ``csrc/flash_attention_tf32.cu`` and
+``csrc/flash_attention.cu``.
 
 Replace ``repro/kernels/flash_attention.py:flash_attention_kernel`` and the
 GQA repeat / head folding of ``repro/kernels/ops.py:flash_attention``: the
@@ -7,15 +8,21 @@ kernels read q ``[B,S,H,hd]`` and k/v ``[B,S,Hkv,hd]`` through their strides
 (kv head ``h // (H/Hkv)``), so no repeated or transposed copies are made,
 and any ``S`` works.
 
-The route is chosen by ``(dtype, head_dim)`` alone:
+:func:`flash_attention_cuda` chooses the route by ``(dtype, head_dim)``
+alone:
 
 - bf16 at head_dim 64 or 128 (every model the port trains): the tensor-core
   kernel (``wgmma`` + TMA).  TMA needs a unit head_dim stride, and the base
   pointers and every other stride a multiple of 16 bytes; anything else
   raises.
-- float32, and bf16 at head_dim 16 or 32: the CUDA-core kernel, which reads
-  any strides (a tensor whose head_dim stride is not 1 is made contiguous).
+- float32 at any head_dim: the 3xTF32 tensor-core kernel (``mma.sync``).
+  Its 16-byte ``cp.async`` loads need the same layout; a tensor that does
+  not have it is copied contiguous first.
+- bf16 at head_dim 16 or 32: the CUDA-core kernel, which reads any strides
+  (a tensor whose head_dim stride is not 1 is made contiguous).
 
+:func:`flash_attention_cuda_cores` launches the CUDA-core kernel explicitly,
+float32 included, so the two float32 routes can be run on the same inputs.
 A failed launch raises; no route takes over from another.
 """
 from __future__ import annotations
@@ -30,8 +37,13 @@ SM90_HEAD_DIMS = (64, 128)
 
 
 def uses_sm90(dtype: torch.dtype, hd: int) -> bool:
-    """True where the tensor-core kernel is the route."""
+    """True where the bf16 tensor-core kernel is the route."""
     return dtype == torch.bfloat16 and hd in SM90_HEAD_DIMS
+
+
+def uses_tf32(dtype: torch.dtype, hd: int) -> bool:
+    """True where the 3xTF32 tensor-core kernel is the route."""
+    return dtype == torch.float32 and hd in HEAD_DIMS
 
 
 def _require_card(*ts: torch.Tensor) -> None:
@@ -68,9 +80,17 @@ def _tma_strides(name: str, t: torch.Tensor) -> list:
     return out
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool) -> torch.Tensor:
-    """q: [B,S,H,hd]; k,v: [B,S,Hkv,hd] on the card -> [B,S,H,hd]."""
+def _cp_async_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the 3xTF32 kernel reads it: unit head_dim stride, base and
+    the strides it steps over multiples of 16 bytes; else a contiguous
+    copy (a new allocation, so its base is aligned too)."""
+    ok = t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+        size == 1 or stride * t.element_size() % 16 == 0
+        for size, stride in zip(t.shape[:3], t.stride()[:3]))
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     B, S, H, hd = q.shape
     Hkv = k.shape[2]
     _require_card(q, k, v)
@@ -83,8 +103,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (B, S, Hkv, hd) or v.shape != (B, S, Hkv, hd):
         raise ValueError(f"flash_attention_cuda: k/v shapes {tuple(k.shape)}"
                          f"/{tuple(v.shape)} do not match q {tuple(q.shape)}")
-    o = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool) -> torch.Tensor:
+    """q: [B,S,H,hd]; k,v: [B,S,Hkv,hd] on the card -> [B,S,H,hd], by the
+    route of ``(dtype, head_dim)``."""
+    _check(q, k, v)
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
     if uses_sm90(q.dtype, hd):
+        o = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
         strides = [s for name, t in (("q", q), ("k", k), ("v", v))
                    for s in _tma_strides(name, t)]
         _build.launch("flash_attention_sm90", "repro_flash_attention_sm90",
@@ -92,7 +121,31 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       B, S, H, Hkv, hd, *strides, int(causal),
                       float(hd ** -0.5), _stream(q))
         return o
+    if uses_tf32(q.dtype, hd):
+        q, k, v = (_cp_async_ready(t) for t in (q, k, v))
+        o = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+        _build.launch("flash_attention_tf32", "repro_flash_attention_tf32",
+                      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                      B, S, H, Hkv, hd,
+                      *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                      int(causal), float(hd ** -0.5), _stream(q))
+        return o
+    return flash_attention_cuda_cores(q, k, v, causal)
+
+
+def flash_attention_cuda_cores(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, causal: bool) -> torch.Tensor:
+    """The CUDA-core kernel (``csrc/flash_attention.cu``): float32 at any
+    head_dim (``chip_smoke.py`` runs it beside the 3xTF32 route on the same
+    inputs) and bf16 at head_dim 16/32.  One launch of ``flash_attention``."""
+    _check(q, k, v)
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    if uses_sm90(q.dtype, hd):
+        raise ValueError(f"flash_attention_cuda_cores: no CUDA-core kernel "
+                         f"for {q.dtype} at head_dim {hd}")
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    o = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     _build.launch("flash_attention", "repro_flash_attention",
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                   B, S, H, Hkv, hd,

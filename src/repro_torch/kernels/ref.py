@@ -13,15 +13,19 @@ import torch.nn.functional as F
 
 
 def mha_reference(q, k, v, *, causal: bool = True, sm_scale=None):
-    """q,k,v: [BH, S, d] -> [BH, S, d]; fp32 softmax like the kernel."""
+    """q,k,v: [BH, S, d] -> [BH, S, d]; fp32 softmax like the kernel
+    (float64 when every operand is float64, a witness for the float32
+    versions)."""
     BH, S, d = q.shape
     sm_scale = sm_scale if sm_scale is not None else d ** -0.5
-    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * sm_scale
+    acc = torch.float64 if all(t.dtype == torch.float64
+                               for t in (q, k, v)) else torch.float32
+    s = torch.einsum("bqd,bkd->bqk", q.to(acc), k.to(acc)) * sm_scale
     if causal:
         mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
         s = torch.where(mask[None], s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+    return torch.einsum("bqk,bkd->bqd", p, v.to(acc)).to(q.dtype)
 
 
 def gqa_attention_reference(q, k, v, *, causal: bool = True):

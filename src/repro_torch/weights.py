@@ -14,6 +14,8 @@ import torch
 
 
 def _to_tensor(a, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):     # the port's own leaves, any dtype
+        return a.detach().to(device, copy=True)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16, as jax gives it
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
@@ -31,7 +33,9 @@ def _map(tree, fn):
 
 def params_from_numpy(stem, layers, head, device) -> Tuple[Any, List[Any], Any]:
     """Numpy parameter trees -> the port's dicts of tensors on ``device``,
-    each leaf keeping its dtype."""
+    each leaf keeping its dtype.  A leaf may also be a tensor (copied), so
+    a bf16 model's own trees carry over without the float32 round trip of
+    :func:`params_to_numpy`."""
     conv = lambda a: _to_tensor(a, device)      # noqa: E731
     return _map(stem, conv), list(_map(list(layers), conv)), _map(head, conv)
 

@@ -8,7 +8,7 @@ scores from bf16 q/k, the scale folded into exp2, an online softmax over
 kernel rounds them).  The emulation is
 held to the ``flash_attention_bf16`` tier against the port's plain version
 and against the JAX package's wrapper (Pallas in interpret mode) on the same
-numpy inputs.  The dispatch between the two CUDA routes and the wrappers'
+numpy inputs.  The dispatch between the CUDA routes and the wrappers'
 argument checks are tested with the launch monkeypatched.
 """
 import math
@@ -150,8 +150,8 @@ def recorded_launches(monkeypatch):
 @pytest.mark.parametrize("dtype,hd,entry", [
     (torch.bfloat16, 128, "repro_flash_attention_sm90"),
     (torch.bfloat16, 64, "repro_flash_attention_sm90"),
-    (torch.float32, 128, "repro_flash_attention"),
-    (torch.float32, 64, "repro_flash_attention"),
+    (torch.float32, 128, "repro_flash_attention_tf32"),
+    (torch.float32, 64, "repro_flash_attention_tf32"),
     (torch.bfloat16, 32, "repro_flash_attention"),
     (torch.bfloat16, 16, "repro_flash_attention"),
 ])
@@ -163,9 +163,9 @@ def test_flash_dispatch_by_dtype_and_head_dim(recorded_launches, dtype, hd,
     ((kernel, got, args),) = recorded_launches
     assert got == entry
     sm90 = entry.endswith("sm90")
-    assert kernel == ("flash_attention_sm90" if sm90 else "flash_attention")
+    assert kernel == entry[len("repro_"):]     # one counter per kernel
     assert len(args) == len(_build.SIGNATURES[entry])      # stream last
-    if sm90:       # contiguous strides pass through; causal, scale
+    if sm90 or entry.endswith("tf32"):   # strides pass through; causal, scale
         assert args[9:18] == (32 * 4 * hd, 4 * hd, hd,
                               32 * 2 * hd, 2 * hd, hd,
                               32 * 2 * hd, 2 * hd, hd)
@@ -212,7 +212,8 @@ def test_flash_sm90_unsupported_layout_raises(recorded_launches, what,
 
 def test_flash_counts_each_route_under_its_own_kernel(monkeypatch):
     """Each flash kernel has one counter, added to where it launches: the
-    tensor-core launches do not show under ``flash_attention``."""
+    tensor-core launches (bf16 and float32) do not show under
+    ``flash_attention``."""
     monkeypatch.setattr(fa, "_require_card", lambda *ts: None)
     monkeypatch.setattr(fa, "_stream", lambda t: 0)
 
@@ -227,10 +228,11 @@ def test_flash_counts_each_route_under_its_own_kernel(monkeypatch):
         q = torch.zeros(1, 32, 4, hd, dtype=dtype)
         for _ in range(n):
             fa.flash_attention_cuda(q, q, q, True)
-    assert _build.LAUNCHES == {"rmsnorm": 0, "flash_attention": 3,
+    assert _build.LAUNCHES == {"rmsnorm": 0, "flash_attention": 1,
                                "fused_adam": 0, "ssd_scan": 0,
                                "flash_attention_sm90": 3,
-                               "ssd_scan_sm90": 0}
+                               "ssd_scan_sm90": 0,
+                               "flash_attention_tf32": 2}
 
 
 def test_flash_requires_card():
