@@ -10,34 +10,42 @@ Phases, in order; any failure exits non-zero and prints no result:
    and the tensor-core kernels' SASS (``cuobjdump``) checked: bf16 flash
    for HGMMA in both forms and UTMALDG, float32 flash for
    HMMA.1688.F32.TF32 (mma.sync, TF32 in) with its instruction mix
-   printed, the SSD scan's three kernels for HMMA (bf16, float32
-   accumulators) and LDGSTS (cp.async), and the float32 flash and SSD
-   kernels for no local-memory traffic (spills);
+   printed, both SSD routes' three kernels (bf16 and float32) for HMMA
+   (bf16, float32 accumulators) and LDGSTS (cp.async), the float32 SSD
+   route's instruction mix printed, and the float32 flash and every SSD
+   kernel for no local-memory traffic (spills);
 3. every kernel against its plain PyTorch version on the card at the main
    paths' shapes (rmsnorm [4096, 4096]; flash attention [1, 4096, 32, 128]
    causal on all three routes: float32 on the 3xTF32 tensor-core route MHA
    and GQA, plus head_dim 16 and 64, ragged S 4000, bidirectional and a
    peaked softmax, each also against a float64 evaluation, with the
    CUDA-core kernel on the main case's inputs; bf16 at head_dim 32 on the
-   CUDA cores; bf16 on the tensor cores MHA and GQA, plus head_dim 64,
-   ragged S 4000, bidirectional, a peaked softmax and strided projection
-   views; fused AdamW bitwise against the numpy oracle over 3 steps, at
-   n % 4 != 0 and on views off a 16-byte boundary; the SSD scan at [1, 4096, 80, 64] with n 128, chunk
-   256, against the sequential oracle: bf16 on the tensor-core route and,
-   on the same inputs, the CUDA-core kernel, fp32 on the CUDA-core route,
-   with order-1 and small step sizes, and with 8 groups, its fp32 cases
-   also against the oracle in float64), with kernel, plain-version and
-   library-call times (rmsnorm and ``F.rms_norm``, each flash route and
-   ``F.scaled_dot_product_attention`` interleaved; the SSD scan beside
-   ``ref.ssd_chunked`` in bf16, composed of cuBLAS products);
+   CUDA cores, timed there beside SDPA; bf16 on the tensor cores MHA and
+   GQA, plus head_dim 64, ragged S 4000, bidirectional, a peaked softmax
+   and strided projection views; fused AdamW bitwise against the numpy
+   oracle over 3 steps, at n % 4 != 0 and on views off a 16-byte boundary;
+   the SSD scan at [1, 4096, 80, 64] with n 128, chunk 256, against the
+   sequential oracle: bf16 on the bf16 tensor-core route, fp32 on the
+   float32 tensor-core route, each with the CUDA-core kernel on the same
+   inputs, with order-1 and small step sizes, and with 8 groups, the fp32
+   cases also against the oracle in float64, with silu and signed
+   inputs; the float32 route also at four narrower widths, p 16/32/48 and
+   n 32/48/80/112, so that each of its builds is checked), with kernel,
+   plain-version and library-call times (rmsnorm and ``F.rms_norm``, each
+   flash route and ``F.scaled_dot_product_attention`` interleaved; each SSD
+   route beside
+   the CUDA-core kernel and ``ref.ssd_chunked`` in the same dtype,
+   composed of cuBLAS products);
 4. a tiny dense and a tiny ssm cluster on the card against the same
    clusters on the CPU, for 3 steps each, within the reference's
    kernel-consistency bounds (the dense twin, float32 at head_dim 16,
-   must take the 3xTF32 flash route only); the same in bf16 at the
-   smallest widths of the tensor-core routes (dense head_dim 64; ssm
-   headdim 64, state 64, chunk 64; seq 128), within the bf16 twins'
-   bound, every flash or SSD launch on those routes; then both float32
-   twins through the
+   must take the 3xTF32 flash route only; the ssm twin, float32 at chunk
+   8, the CUDA-core SSD kernel only); the float32 ssm twin at the smallest
+   widths of the tensor-core SSD routes (headdim 64, state 64, chunk 64;
+   seq 128) within the same bounds, every SSD launch on the float32
+   tensor-core route; the same widths in bf16 (dense head_dim 64),
+   within the bf16 twins' bound, every flash or SSD launch on the bf16
+   tensor-core routes; then both float32 twins through the
    recovery sequence of ``tests/test_torch_recovery.py`` (fail-stop found
    by the probes with a corrupted snapshot, scale-out, fail-slow with a
    layer migration, drain with a corrupted snapshot, a two-rank burst,
@@ -45,7 +53,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    layouts equal exactly, losses and state within the same bounds; and the
    main-path kernels at the shapes recovery gives them (batch-2 items:
    rmsnorm on 8192 rows of 2560 and 5120, the SSD scan at
-   [2, 4096, 80, 64]) against their plain versions;
+   [2, 4096, 80, 64]) and rmsnorm in float32 at phase 8's [4096, 2560]
+   and [4096, 5120], against their plain versions;
 5. the dense main path: ``VirtualCluster.train_step`` on codeqwen1.5-7b at
    its published widths and dtype, depth cut to 2 layers, dp=2, pp=2, seq
    4096, for 3 steps, with exact kernel launch counts (every flash launch
@@ -64,7 +73,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    measured wall clock by phase (verify, communicator edit, live remap,
    migration, dataflow; ring re-bootstrap inside remap and migration),
    its total and peak device memory beside the record's modeled seconds;
-8. a JSON line with every kernel's numbers, one with every recovery's, then
+8. the float32 ssm path: mamba2-2.7b at its widths in float32, depth cut
+   to 2 layers, for 2 steps as phase 5 runs them, every SSD launch on the
+   float32 tensor-core route;
+9. a JSON line with every kernel's numbers (each record's ``shape`` names
+   the inputs its times were taken on), one with every recovery's, then
    the result line.
 """
 from __future__ import annotations
@@ -96,7 +109,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.fused_adam import fused_adam_cuda_  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
-    ssd_scan_cuda, ssd_scan_cuda_cores, uses_sm90 as ssd_uses_sm90)
+    ssd_scan_cuda, ssd_scan_cuda_cores, uses_sm90 as ssd_uses_sm90,
+    uses_sm90_f32 as ssd_uses_sm90_f32)
 from repro_torch.models.registry import tiny_config  # noqa: E402
 from repro_torch.optim.adam import AdamConfig, adam_update_flat_np  # noqa: E402
 from repro_torch.weights import params_to_numpy  # noqa: E402
@@ -126,6 +140,9 @@ BF16_TWINS = {
     "ssm": dict(dtype="bfloat16", ssm_headdim=64, ssm_state=64,
                 ssm_chunk=64, num_layers=2),
 }
+# the float32 tiny ssm twin on the float32 tensor-core SSD route
+# (ssd_scan_sm90_f32): the bf16 ssm twin's widths in float32
+F32_SM90_SSM_TWIN = dict(BF16_TWINS["ssm"], dtype="float32")
 
 SOURCES = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -142,6 +159,8 @@ SOURCES = {
                    "src/repro/kernels/fused_adam.py:52"),
     "ssd_scan_sm90": ("src/repro_torch/kernels/csrc/ssd_scan_sm90.cu",
                       "src/repro/kernels/ssd_scan.py:78"),
+    "ssd_scan_sm90_f32": ("src/repro_torch/kernels/csrc/ssd_scan_sm90_f32.cu",
+                          "src/repro/kernels/ssd_scan.py:78"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:78"),
 }
@@ -161,22 +180,39 @@ DESIGNS = {
                      "chunk-parallel (chunk_state, state_pass, chunk_out), "
                      "mma.sync m16n8k16 with float32 operands as three bf16 "
                      "pieces, x/B/C tiles through cp.async",
-    "ssd_scan": "float32, and other bf16 widths: one block per (b*h, p "
-                "tile) walking the chunks, float32 FMAs on the CUDA cores",
+    "ssd_scan_sm90_f32": "float32, p <= 64, n <= 128, chunk % 64 == 0: "
+                         "ssd_scan_sm90's chunk-parallel form, every product "
+                         "as six bf16 mma.sync m16n8k16 cross terms of three "
+                         "pieces a side, split at fragment load from float32 "
+                         "tiles (cp.async), short accumulator chains",
+    "ssd_scan": "the widths the tensor-core routes do not take (the tiny "
+                "configurations' chunk 8): one block per (b*h, p tile) "
+                "walking the chunks, float32 FMAs on the CUDA cores",
 }
 # exact launches over 3 steps of each main path (4 items a step); every
 # flash launch of the bf16 models takes the tensor-core kernel
 DENSE_LAUNCHES = {"rmsnorm": 60, "flash_attention": 0, "fused_adam": 6,
                   "ssd_scan": 0, "flash_attention_sm90": 24,
-                  "ssd_scan_sm90": 0, "flash_attention_tf32": 0}
+                  "ssd_scan_sm90": 0, "flash_attention_tf32": 0,
+                  "ssd_scan_sm90_f32": 0}
 SSM_LAUNCHES = {"rmsnorm": 108, "flash_attention": 0, "fused_adam": 6,
                 "ssd_scan": 0, "flash_attention_sm90": 0,
-                "ssd_scan_sm90": 48, "flash_attention_tf32": 0}
+                "ssd_scan_sm90": 48, "flash_attention_tf32": 0,
+                "ssd_scan_sm90_f32": 0}
+# exact launches over the 2 steps of the float32 mamba2 path (2 layers, 4
+# items a step): per item one SSD scan a layer, two rmsnorms a layer (the
+# block's norm and the gated out_norm) and the final norm; one fused AdamW
+# per stage a step.  Every SSD launch takes the float32 tensor-core kernel.
+SSM_F32_LAUNCHES = {"rmsnorm": 40, "flash_attention": 0, "fused_adam": 4,
+                    "ssd_scan": 0, "flash_attention_sm90": 0,
+                    "ssd_scan_sm90": 0, "flash_attention_tf32": 0,
+                    "ssd_scan_sm90_f32": 16}
 # exact launches over the 4 steps of phase 7: after a shrink each step is 2
 # items of batch 2, after the scale-out 4 items of batch 1
 RECOVERY_LAUNCHES = {"rmsnorm": 108, "flash_attention": 0, "fused_adam": 8,
                      "ssd_scan": 0, "flash_attention_sm90": 0,
-                     "ssd_scan_sm90": 48, "flash_attention_tf32": 0}
+                     "ssd_scan_sm90": 48, "flash_attention_tf32": 0,
+                     "ssd_scan_sm90_f32": 0}
 # phase 7: (name, recovery, layer_assignment, dp_ranks, per_rank_mbs after)
 # The fail-stop leaves stage 1 one rank wide, so the engine's graph plan
 # moves layer 2 to stage 0; the fail-slow of rank (0, 0) moves layers 1 and
@@ -201,10 +237,15 @@ TWIN_SEQUENCE = [
     ("burst_fail_stop", (5, 6)), ("train",),
     ("event", "dvfs_set", (2,)), ("event", "oom_risk", (3,)),
 ]
-# the tensor-core SSD scan's kernels: name -> HMMA and LDGSTS expected
-SSD_SM90_KERNELS = {"ssd_chunk_state_kernel": True,
-                    "ssd_state_pass_kernel": False,
-                    "ssd_chunk_out_kernel": True}
+# the tensor-core SSD scans' kernels: name -> (instances in the SASS,
+# HMMA and LDGSTS expected); the state pass comes from the header both
+# routes include (one copy each), the float32 route's chunk_out is built
+# for each p / 16 (1-4)
+SSD_SM90_KERNELS = {"ssd_chunk_state_kernel": (1, True),
+                    "ssd_state_pass_kernel": (2, False),
+                    "ssd_chunk_out_kernel": (1, True),
+                    "ssd_f32_chunk_state_kernel": (1, True),
+                    "ssd_f32_chunk_out_kernel": (4, True)}
 
 
 def log(msg: str) -> None:
@@ -241,8 +282,10 @@ def interleaved_medians(fns: dict, rounds: int, iters: int) -> dict:
 
 
 def device_us_by_kernel(fn, iters: int) -> dict:
-    """Device microseconds per call of ``fn`` by kernel name, from
-    ``torch.profiler`` over ``iters`` calls."""
+    """Device microseconds a launch by kernel name, from ``torch.profiler``
+    over ``iters`` calls of ``fn`` (each kernel's total over the launches the
+    trace recorded, whose count is logged: a trace that drops events still
+    gives each kernel's mean)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -250,12 +293,14 @@ def device_us_by_kernel(fn, iters: int) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    out, counts = {}, {}
     for e in prof.key_averages():
         if e.device_time_total > 0:
-            name = re.search(r"(\w+)\(", e.key)
-            out[name.group(1) if name else e.key] = \
-                e.device_time_total / iters
+            name = re.search(r"(\w+)(?:<[^<>()]*>)?\(", e.key)
+            name = name.group(1) if name else e.key
+            out[name] = e.device_time_total / e.count
+            counts[name] = e.count
+    log(f"  profiler: launches recorded over {iters} calls: {counts}")
     return out
 
 
@@ -316,10 +361,11 @@ def sass_check() -> None:
     loads).  float32 flash (one kernel per head_dim) must hold
     HMMA.1688.F32.TF32 (mma.sync, TF32 in, float32 accumulators) and
     LDGSTS, and its head_dim-128 kernel's instruction mix is printed.  The
-    SSD scan's chunk_state and chunk_out must hold HMMA.16816.F32.BF16
-    (mma.sync, bf16 in, float32 accumulators) and LDGSTS (cp.async).  None
-    of the float32 flash and SSD kernels may touch local memory (LDL/STL:
-    spills)."""
+    SSD scan's chunk_state and chunk_out, on both tensor-core routes (bf16
+    and float32), must hold HMMA.16816.F32.BF16 (mma.sync, bf16 in, float32
+    accumulators) and LDGSTS (cp.async), and the float32 route's instruction
+    mix is printed.  None of the float32 flash and SSD kernels may touch
+    local memory (LDL/STL: spills)."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(_build.build())],
                           capture_output=True, text=True, check=True).stdout
@@ -371,17 +417,27 @@ def sass_check() -> None:
             top = sorted(mix[f].items(), key=lambda kv: -kv[1])[:14]
             log("  flash_fwd_tf32_kernel<128> instruction mix (static "
                 "count): " + ", ".join(f"{k} {v}" for k, v in top))
-    for kernel, products in SSD_SM90_KERNELS.items():
-        found = [(f, c) for f, c in counts.items() if kernel in f]
-        check(len(found) == 1, f"expected one {kernel} in the SASS, found "
-                               f"{len(found)}")
-        f, c = found[0]
-        log(f"  SASS {kernel}: HMMA bf16 {c['HMMA bf16']}, LDGSTS "
-            f"{c['LDGSTS']}, LDL/STL {c['LDL/STL']}")
-        check(c["LDL/STL"] == 0, f"{kernel}: local-memory traffic: {c}")
-        if products:
-            check(c["HMMA bf16"] > 0 and c["LDGSTS"] > 0,
-                  f"{kernel}: HMMA.16816.F32.BF16 and LDGSTS expected: {c}")
+    for kernel, (instances, products) in SSD_SM90_KERNELS.items():
+        found = sorted((f, c) for f, c in counts.items() if kernel in f)
+        check(len(found) == instances, f"expected {instances} {kernel} in "
+                                       f"the SASS, found {len(found)}")
+        for f, c in found:
+            # the float32 route's chunk_out is templated on p / 16: <4>
+            # runs at mamba2's widths
+            width = re.search(r"ILi(\d+)E", f)
+            name = f"{kernel}<{width.group(1)}>" if width else kernel
+            log(f"  SASS {name}: HMMA bf16 {c['HMMA bf16']}, LDGSTS "
+                f"{c['LDGSTS']}, LDL/STL {c['LDL/STL']}")
+            check(c["LDL/STL"] == 0, f"{name}: local-memory traffic: {c}")
+            if products:
+                check(c["HMMA bf16"] > 0 and c["LDGSTS"] > 0,
+                      f"{name}: HMMA.16816.F32.BF16 and LDGSTS expected: "
+                      f"{c}")
+            if name in ("ssd_f32_chunk_state_kernel",
+                        "ssd_f32_chunk_out_kernel<4>"):
+                top = sorted(mix[f].items(), key=lambda kv: -kv[1])[:14]
+                log(f"  {name} instruction mix (static count): "
+                    + ", ".join(f"{k} {v}" for k, v in top))
 
 
 def kernel_rmsnorm(gen) -> dict:
@@ -407,7 +463,8 @@ def kernel_rmsnorm(gen) -> dict:
             log(f"  rmsnorm bf16 medians of 5 interleaved rounds of 50: "
                 f"kernel {med['kernel']:.5f} ms, F.rms_norm "
                 f"{med['library']:.5f} ms")
-            rec = dict(max_abs_err=err, ms=med["kernel"],
+            rec = dict(shape=f"bfloat16 [{rows}, {d}]",
+                       max_abs_err=err, ms=med["kernel"],
                        plain_ms=time_ms(lambda: ref.rmsnorm_reference(
                            x, scale, eps), 20),
                        bound_ms=b, bound_by=by, library_ms=med["library"])
@@ -430,10 +487,13 @@ def kernel_flash(gen) -> dict:
     that case is gated against float64 alone and its misses against the
     float32 plain version are printed beside the plain version's own.  On
     the main float32 case the CUDA-core kernel runs on the same inputs.
-    Returns the records of the float32 route, the CUDA-core kernel and the
-    bf16 route."""
+    Each route is timed at its own main case beside SDPA: the tensor-core
+    routes at head_dim 128, the CUDA-core kernel at bf16 head_dim 32, the
+    shape it serves.  Returns the records of the float32 route, the
+    CUDA-core kernel and the bf16 route."""
     B, S, H, hd = 1, 4096, 32, 128
     recs = {}
+    cores_fp32 = {}     # the CUDA-core kernel on the float32 main case
     cases = (  # dtype, S, Hkv, hd, causal, q scale, layout
         (torch.float32, S, H, hd, True, 1.0, "dense"),
         (torch.float32, S, 8, hd, True, 1.0, "dense"),
@@ -491,12 +551,14 @@ def kernel_flash(gen) -> dict:
         else:
             log(f"{name}: max_abs_err {err:.3e} tier {tier_name} ok={ok}")
             check(ok, f"{name} outside {tier_name}")
-        # time the main case of each tensor-core route: MHA, causal
-        if layout != "dense" or s != S or d != hd or not causal \
-                or qscale != 1.0 or Hkv != H or route == "cuda-cores":
+        # time the main case of each route: MHA, causal, head_dim 128 on
+        # the tensor-core routes, head_dim 32 (bf16) on the CUDA cores
+        if layout != "dense" or s != S or not causal or qscale != 1.0 \
+                or Hkv != H or (d != hd and route != "cuda-cores"):
             del q, k, v, o, want
             continue
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        shape = f"{str(dtype)[6:]} q, k, v [{B}, {s}, {H}, {d}] causal"
         # kernel and library call in turn, 5 rounds of 10 launches
         med = interleaved_medians(
             {"kernel": lambda: flash_attention_cuda(q, k, v, True),
@@ -505,7 +567,7 @@ def kernel_flash(gen) -> dict:
         plain = time_ms(lambda: ref.gqa_attention_reference(
             q, k, v, causal=True), 3)
         pairs = B * H * S * (S + 1) // 2
-        nbytes = (2 * B * S * H * hd + 2 * B * S * Hkv * hd) * q.element_size()
+        nbytes = (2 * B * S * H * d + 2 * B * S * Hkv * d) * q.element_size()
         if route == "tf32":
             # float32 accuracy on the tensor cores: three TF32 products
             # per multiply-add; the CUDA cores' float32 bound beside it
@@ -535,21 +597,24 @@ def kernel_flash(gen) -> dict:
                           library_ms=med["library"],
                           cuda_core_bound_ms=b_cores)
             recs["flash_attention_tf32"] = dict(
-                max_abs_err=err, ms=med["kernel"],
+                shape=shape, max_abs_err=err, ms=med["kernel"],
                 max_abs_err_float64=err64, device_us_by_kernel=by_kernel,
-                **common)
-            recs["flash_attention"] = dict(max_abs_err=err_c, ms=cores_ms,
-                                           **common)
+                by_kernel_per="launch the profiler recorded", **common)
+            cores_fp32 = dict(fp32_hd128_shape=shape, fp32_hd128_ms=cores_ms,
+                              fp32_hd128_max_abs_err=err_c)
             del cores
         else:
-            b, by = bound(nbytes, 4 * hd * pairs, dtype)
-            log(f"  ms {med['kernel']:.4f} (median of 5 interleaved rounds "
-                f"of 10) plain_ms {plain:.3f} library_ms "
-                f"{med['library']:.4f} bound_ms {b:.4f} ({by})")
-            recs["flash_attention_sm90"] = dict(
-                max_abs_err=err, ms=med["kernel"], plain_ms=plain,
+            b, by = bound(nbytes, 4 * d * pairs, dtype)
+            log(f"  {route} hd {d}: ms {med['kernel']:.4f} (median of 5 "
+                f"interleaved rounds of 10) plain_ms {plain:.3f} library_ms "
+                f"{med['library']:.4f} (F.scaled_dot_product_attention) "
+                f"bound_ms {b:.4f} ({by})")
+            recs["flash_attention_sm90" if route == "sm90"
+                 else "flash_attention"] = dict(
+                shape=shape, max_abs_err=err, ms=med["kernel"], plain_ms=plain,
                 bound_ms=b, bound_by=by, library_ms=med["library"])
         del q, k, v, o, want, qt, kt, vt
+    recs["flash_attention"].update(cores_fp32)
     return recs
 
 
@@ -626,8 +691,8 @@ def kernel_adam(gen, stage_elems: int) -> dict:
     b, by = bound(28 * n, 12 * n, torch.float32)
     log(f"fused_adam n={n}: ms {ms:.3f} plain_ms {plain:.3f} "
         f"library_ms {lib:.3f} bound_ms {b:.3f} ({by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                bound_by=by, library_ms=lib)
+    return dict(shape=f"float32 flat [{n}]", max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib)
 
 
 def kernel_ssd(gen) -> dict:
@@ -635,31 +700,49 @@ def kernel_ssd(gen) -> dict:
     activation as in the model.  Two step-size regimes: dt of order 1 with
     the init's A (the state decays within a chunk), and dt in [1e-3, 1e-1]
     with |A| <= 1 (the state carries across all 16 chunks).  bf16 goes
-    through ``ssd_scan_cuda`` to the tensor-core route; on the same inputs
-    the CUDA-core kernel is launched too (``ssd_scan_cuda_cores``), so both
-    are held to the tier and timed.  Returns the records of both kernels.
+    through ``ssd_scan_cuda`` to the bf16 tensor-core route, float32 to the
+    float32 one; on the same inputs the CUDA-core kernel is launched too
+    (``ssd_scan_cuda_cores``), so both routes are held to the tier, and in
+    each dtype the g 1 "typical" silu case is timed.  Returns the records of
+    the three kernels.
 
     The gate is the tier against the float32 oracle on silu-activated x, B
     and C, the main path's inputs (``apply_mamba`` applies silu to xBC
-    before the scan).  Every float32 case also meets a float64 witness:
-    the oracle in float64 on the same inputs, with the error held to the
-    ``ssd_scan`` tier scaled by the sum of the magnitudes of y's terms (the
-    oracle on |x|, |B|, |C|), which is what float32 rounding scales with.
-    Signed normal inputs, as the reference's kernel corpus uses, cancel to
-    y ~ 0 where those terms reach hundreds; there no float32 summation
-    meets the elementwise tier, so they are held to the witness alone and
-    their elementwise misses are printed."""
-    b, s, h, p, n, chunk = 1, 4096, 80, 64, 128, 256
-    recs = {}
-    for dtype, g, regime, act in ((torch.bfloat16, 1, "typical", "silu"),
-                                  (torch.bfloat16, 1, "carried", "silu"),
-                                  (torch.bfloat16, 8, "typical", "silu"),
-                                  (torch.float32, 1, "typical", "silu"),
-                                  (torch.float32, 1, "carried", "silu"),
-                                  (torch.float32, 8, "carried", "silu"),
-                                  (torch.float32, 1, "typical", "signed"),
-                                  (torch.float32, 8, "carried", "signed")):
-        tier_name = "ssd_scan" if dtype == torch.float32 else "ssd_scan_bf16"
+    before the scan).  Every float32 case also meets a float64 witness, on
+    both routes: the oracle in float64 on the same inputs, with the error
+    held to the ``ssd_scan`` tier scaled by the sum of the magnitudes of y's
+    terms (the oracle on |x|, |B|, |C|), which is what float32 rounding
+    scales with.  Signed normal inputs, as the reference's kernel corpus
+    uses, cancel to y ~ 0 where those terms reach hundreds; there no float32
+    summation meets the elementwise tier, so they are held to the witness
+    alone and their elementwise misses are printed.
+
+    Four more silu cases run the float32 route at narrower widths no model
+    of the repo has, so that each build of its chunk_out (p / 16 = 1, 2, 3)
+    and chunk_state's partial n tiles (n not a multiple of 64) are held to
+    the same oracle and witness: (h, p, n, chunk) = (24, 16, 32, 64),
+    (24, 32, 48, 128), (24, 48, 80, 192), (24, 48, 112, 256), each over
+    the most rows up to 4096 that whole chunks hold."""
+    b = 1
+    main = (80, 64, 128, 256)        # h, p, n, chunk: mamba2-2.7b's
+    recs = {"ssd_scan": {}}
+    for dtype, g, regime, act, widths in (
+            (torch.bfloat16, 1, "typical", "silu", main),
+            (torch.bfloat16, 1, "carried", "silu", main),
+            (torch.bfloat16, 8, "typical", "silu", main),
+            (torch.float32, 1, "typical", "silu", main),
+            (torch.float32, 1, "carried", "silu", main),
+            (torch.float32, 8, "carried", "silu", main),
+            (torch.float32, 1, "typical", "signed", main),
+            (torch.float32, 8, "carried", "signed", main),
+            (torch.float32, 1, "typical", "silu", (24, 16, 32, 64)),
+            (torch.float32, 4, "carried", "silu", (24, 32, 48, 128)),
+            (torch.float32, 2, "typical", "silu", (24, 48, 80, 192)),
+            (torch.float32, 1, "carried", "silu", (24, 48, 112, 256))):
+        h, p, n, chunk = widths
+        s = 4096 // chunk * chunk
+        f32 = dtype == torch.float32
+        tier_name = "ssd_scan" if f32 else "ssd_scan_bf16"
         tier = ops.TOLERANCE_TIERS[tier_name]
         xBC = torch.randn(b, s, h * p + 2 * g * n, generator=gen,
                           device="cuda")
@@ -675,109 +758,151 @@ def kernel_ssd(gen) -> dict:
             dt = 1e-3 + (1e-1 - 1e-3) * torch.rand(b, s, h, generator=gen,
                                                    device="cuda")
             A = -(0.05 + 0.95 * torch.rand(h, generator=gen, device="cuda"))
-        sm90 = ssd_uses_sm90(dtype, p, n, chunk)
-        check(sm90 == (dtype == torch.bfloat16),
+        route = "ssd_scan_sm90_f32" if f32 else "ssd_scan_sm90"
+        check(ssd_uses_sm90_f32(dtype, p, n, chunk) == f32
+              and ssd_uses_sm90(dtype, p, n, chunk) == (not f32),
               f"ssd_scan_cuda routes {dtype} to the wrong kernel")
+        before = _build.LAUNCHES[route]
         y = ssd_scan_cuda(x, dt, A, B, C, chunk)
+        check(_build.LAUNCHES[route] == before + 1,
+              f"ssd_scan_cuda did not launch {route} for {dtype}")
         Bh, Ch = (t.repeat_interleave(h // g, dim=2) for t in (B, C))
         want = ref.ssd_reference(x, dt, A, Bh, Ch)[0]
-        name = f"ssd_scan {dtype} g={g} {regime} {act}"
-        outs = {"tensor cores" if sm90 else "CUDA cores": y}
-        if sm90:
-            outs["CUDA cores"] = ssd_scan_cuda_cores(x, dt, A, B, C, chunk)
+        name = f"ssd_scan {dtype} g={g} {regime} {act}" + (
+            "" if widths == main
+            else f" s={s} h={h} p={p} n={n} chunk={chunk}")
+        outs = {"tensor cores": y,
+                "CUDA cores": ssd_scan_cuda_cores(x, dt, A, B, C, chunk)}
         errs = {}
-        for route, got in outs.items():
-            ok, errs[route] = within(got, want, tier)
-            log(f"{name} on the {route}: max_abs_err {errs[route]:.3e} (max "
+        for where, got in outs.items():
+            ok, errs[where] = within(got, want, tier)
+            log(f"{name} on the {where}: max_abs_err {errs[where]:.3e} (max "
                 f"|y| {float(want.float().abs().max()):.2f}) tier "
                 f"{tier_name} ok={ok}")
             if act == "silu":
-                check(ok, f"{name} on the {route} outside {tier_name}")
-        if sm90:
-            diff = (y.float() - outs["CUDA cores"].float()).abs().max()
-            log(f"  tensor cores vs CUDA cores: max_abs_diff "
-                f"{float(diff):.3e}")
-        if dtype == torch.float32:
+                check(ok, f"{name} on the {where} outside {tier_name}")
+        diff = (y.float() - outs["CUDA cores"].float()).abs().max()
+        log(f"  tensor cores vs CUDA cores: max_abs_diff {float(diff):.3e}")
+        if f32:
             d = [t.double() for t in (x, dt, A, Bh, Ch)]
             y64 = ref.ssd_reference(*d)[0]
             terms = ref.ssd_reference(d[0].abs(), d[1], d[2], d[3].abs(),
                                       d[4].abs())[0]
-            worst = {}
-            for who, got in (("kernel", y), ("oracle", want)):
+            for who, got in (("tensor cores", y),
+                             ("CUDA cores", outs["CUDA cores"]),
+                             ("oracle", want)):
                 e = (got.double() - y64).abs()
-                worst[who] = float((e / terms.clamp_min(1e-300)).max())
+                worst = float((e / terms.clamp_min(1e-300)).max())
                 miss = int((e > tier["atol"] + tier["rtol"] * y64.abs())
                            .sum())
                 log(f"  {who} vs float64: max_abs_err {float(e.max()):.3e}, "
                     f"{miss} elements outside {tier_name}, max err / "
-                    f"sum|terms| {worst[who]:.3e}")
-                if who == "kernel":
+                    f"sum|terms| {worst:.3e}")
+                if who != "oracle":
                     check(bool((e <= tier["atol"] + tier["rtol"] * terms)
                                .all()),
-                          f"{name}: beyond {tier_name} of sum|terms| "
-                          f"against float64")
+                          f"{name} on the {who}: beyond {tier_name} of "
+                          f"sum|terms| against float64")
             del d, y64, terms, e
-        if dtype == torch.bfloat16 and g == 1 and regime == "typical":
-            # the main path's case.  Bound: x, B, C, dt, A read once, y
-            # written once; the causal pairs i >= j of each chunk for C B^T
-            # and M x, plus the entering-state term and the state update
+        if widths == main and g == 1 and regime == "typical" \
+                and act == "silu":
+            # Bound: x, B, C, dt, A read once, y written once; the causal
+            # pairs i >= j of each chunk for C B^T and M x, plus the
+            # entering-state term and the state update.  float32 accuracy
+            # on the tensor cores takes six bf16 products per multiply-add
+            # (the route's design), so its bound is that work at the bf16
+            # peak; the CUDA cores' float32 bound is printed beside it
             nc, es = s // chunk, x.element_size()
             nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * es \
                 + 4 * (b * s * h + h)
             flops = b * h * nc * (chunk * (chunk + 1) * (n + p)
                                   + 4 * chunk * p * n)
-            bnd, by = bound(nbytes, flops, dtype)
+            if f32:
+                bnd, by = bound(nbytes, 6 * flops, dtype,
+                                PEAK_OPS_PER_S[torch.bfloat16])
+                b_cores, _ = bound(nbytes, flops, dtype)
+            else:
+                bnd, by = bound(nbytes, flops, dtype)
             med = interleaved_medians(
                 {"tensor cores": lambda: ssd_scan_cuda(x, dt, A, B, C,
                                                        chunk),
                  "CUDA cores": lambda: ssd_scan_cuda_cores(x, dt, A, B, C,
                                                            chunk)}, 3, 10)
-            phases = device_us_by_kernel(
-                lambda: ssd_scan_cuda(x, dt, A, B, C, chunk), 10)
-            # the composed yardstick: the chunked form in bf16, its
-            # products cuBLAS batched matmuls; no single PyTorch call
+            phases = {k: v for k, v in device_us_by_kernel(
+                lambda: ssd_scan_cuda(x, dt, A, B, C, chunk), 10).items()
+                if k.startswith("ssd_")}
+            # the composed yardstick: the chunked form in x's dtype, its
+            # products cuBLAS batched matmuls (float32 ones in full float32:
+            # main sets allow_tf32 False); no single PyTorch call
             composed = time_ms(lambda: ref.ssd_chunked(x, dt, A, B, C,
                                                        chunk), 5)
             _, composed_err = within(ref.ssd_chunked(x, dt, A, B, C,
                                                      chunk)[0], want, tier)
             plain = time_ms(lambda: ref.ssd_reference(x, dt, A, Bh, Ch), 1)
-            log(f"  ms: tensor cores {med['tensor cores']:.4f}, CUDA cores "
-                f"{med['CUDA cores']:.4f} (medians of 3 interleaved rounds "
-                f"of 10); composed ref.ssd_chunked bf16 {composed:.4f} "
+            cores_note = (f"; {b_cores:.4f} at the CUDA cores' "
+                          f"{PEAK_OPS_PER_S[dtype] / 1e12:g} TFLOP/s"
+                          if f32 else "")
+            log(f"  {dtype} ms: tensor cores {med['tensor cores']:.4f}, CUDA "
+                f"cores {med['CUDA cores']:.4f} (medians of 3 interleaved "
+                f"rounds of 10); composed ref.ssd_chunked {composed:.4f} "
                 f"(max_abs_err {composed_err:.3e}); plain_ms {plain:.3f}; "
-                f"bound_ms {bnd:.4f} ({by})")
+                f"bound_ms {bnd:.4f} ({by}){cores_note}")
             log("  tensor-core route by kernel, us a call: " + ", ".join(
-                f"{k} {v:.2f}" for k, v in phases.items()
-                if k.startswith("ssd_")))
+                f"{k} {v:.2f}" for k, v in phases.items()))
+            shape = (f"{str(dtype)[6:]} x [{b}, {s}, {h}, {p}], B, C "
+                     f"[{b}, {s}, {g}, {n}], chunk {chunk}")
             common = dict(plain_ms=plain, bound_ms=bnd, bound_by=by,
                           library_ms=None, composed_ms=composed)
-            recs["ssd_scan_sm90"] = dict(
-                max_abs_err=errs["tensor cores"], ms=med["tensor cores"],
-                phases_us={k: v for k, v in phases.items()
-                           if k.startswith("ssd_")}, **common)
-            recs["ssd_scan"] = dict(max_abs_err=errs["CUDA cores"],
-                                    ms=med["CUDA cores"], **common)
+            recs[route] = dict(shape=shape, max_abs_err=errs["tensor cores"],
+                               ms=med["tensor cores"], phases_us=phases,
+                               by_kernel_per="launch the profiler recorded",
+                               **common)
+            if f32:
+                # the CUDA-core kernel's record: its own dtype's inputs
+                recs[route]["cuda_core_bound_ms"] = b_cores
+                recs["ssd_scan"].update(shape=shape,
+                                        max_abs_err=errs["CUDA cores"],
+                                        ms=med["CUDA cores"],
+                                        cuda_core_bound_ms=b_cores, **common)
+            else:
+                recs["ssd_scan"].update(bf16_inputs_shape=shape,
+                                        bf16_inputs_ms=med["CUDA cores"],
+                                        bf16_inputs_max_abs_err=errs[
+                                            "CUDA cores"])
         del xBC, x, B, C, Bh, Ch, y, want, outs
     return recs
 
 
-def kernel_recovery_shapes(gen) -> dict:
-    """The main-path kernels at the shapes phase 7 gives them after a shrink
-    (each item two sequences): rmsnorm on 8192 rows of mamba2's 2560 and
-    5120, and the tensor-core SSD scan at [2, 4096, 80, 64], n 128, chunk
-    256, x, B and C views of one silu-activated activation; each against its
-    plain version under the tier of phase 3.  Returns max_abs_err by name."""
-    errs = {}
-    for d in (2560, 5120):
-        x = torch.randn(2 * 4096, d, generator=gen,
-                        device="cuda").to(torch.bfloat16)
-        scale = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
-        ok, err = within(rmsnorm_cuda(x, scale, 1e-5),
-                         ref.rmsnorm_reference(x, scale, 1e-5),
-                         ops.TOLERANCE_TIERS["rmsnorm_bf16"])
-        log(f"rmsnorm bf16 [8192, {d}]: max_abs_err {err:.3e} ok={ok}")
-        check(ok, f"rmsnorm bf16 [8192, {d}] outside rmsnorm_bf16")
-        errs["rmsnorm"] = max(errs.get("rmsnorm", 0.0), err)
+def kernel_path_shapes(gen) -> dict:
+    """The main-path kernels at the shapes the later paths give them.
+    Phase 7 after a shrink (each item two sequences): rmsnorm in bf16 on
+    8192 rows of mamba2's 2560 (the block norm) and 5120 (the gated
+    out_norm), and the tensor-core SSD scan at [2, 4096, 80, 64], n 128,
+    chunk 256, x, B and C views of one silu-activated activation.  Phase 8
+    (float32 mamba2, one sequence an item): rmsnorm in float32 on 4096 rows
+    of 2560 and 5120, under the float32 ``rmsnorm`` tier (its SSD scan is
+    kernel_ssd's float32 main case).  Each against its plain version under
+    the tier of phase 3.  Returns, by kernel, the records' max_abs_err
+    entries."""
+    errs = {"rmsnorm": {}, "ssd_scan_sm90": {}}
+    for dtype, rows, tier, key in (
+            (torch.bfloat16, 2 * 4096, "rmsnorm_bf16",
+             "recovery_shapes_max_abs_err"),
+            (torch.float32, 4096, "rmsnorm",
+             "float32_path_shapes_max_abs_err")):
+        for d in (2560, 5120):
+            x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+            scale = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+            before = _build.LAUNCHES["rmsnorm"]
+            y = rmsnorm_cuda(x, scale, 1e-5)
+            check(_build.LAUNCHES["rmsnorm"] == before + 1,
+                  f"rmsnorm_cuda did not launch its kernel for {dtype}")
+            ok, err = within(y, ref.rmsnorm_reference(x, scale, 1e-5),
+                             ops.TOLERANCE_TIERS[tier])
+            log(f"rmsnorm {dtype} [{rows}, {d}]: max_abs_err {err:.3e} tier "
+                f"{tier} ok={ok}")
+            check(ok, f"rmsnorm {dtype} [{rows}, {d}] outside {tier}")
+            errs["rmsnorm"][key] = max(errs["rmsnorm"].get(key, 0.0), err)
     b, s, h, p, n, chunk = 2, 4096, 80, 64, 128, 256
     xBC = F.silu(torch.randn(b, s, h * p + 2 * n, generator=gen,
                              device="cuda")).to(torch.bfloat16)
@@ -795,18 +920,23 @@ def kernel_recovery_shapes(gen) -> dict:
     log(f"ssd_scan bf16 [2, 4096, 80, 64] on the tensor cores: max_abs_err "
         f"{err:.3e} ok={ok}")
     check(ok, "ssd_scan bf16 at batch 2 outside ssd_scan_bf16")
-    errs["ssd_scan_sm90"] = err
+    errs["ssd_scan_sm90"]["recovery_shapes_max_abs_err"] = err
     return errs
 
 
-def phase_tiny_twin(family: str, bf16: bool = False) -> dict:
-    """3 steps of a tiny cluster on the card and on the CPU: float32 within
-    the reference's kernel-consistency bounds, or the bf16 configuration
-    of ``BF16_TWINS`` (seq 128) within the bf16 twins' bound; returns the
-    card's launch counts."""
-    name = f"tiny {family} twin ({'bf16' if bf16 else 'float32'})"
-    cfg = tiny_config(family, **(BF16_TWINS[family] if bf16 else {}))
-    kw = dict(global_batch=8, num_micro=2, seq_len=128 if bf16 else 16)
+def phase_tiny_twin(family: str, twin: str = "float32") -> dict:
+    """3 steps of a tiny cluster on the card and on the CPU: the float32
+    tiny configuration (seq 16) within the reference's kernel-consistency
+    bounds; the bf16 configuration of ``BF16_TWINS`` (``twin="bf16"``, seq
+    128) within the bf16 twins' bound; or ``F32_SM90_SSM_TWIN``
+    (``twin="float32 sm90"``, seq 128) within the float32 bounds.  Returns
+    the card's launch counts."""
+    name = f"tiny {family} twin ({twin})"
+    bf16 = twin == "bf16"
+    cfg = tiny_config(family, **{"float32": {}, "bf16": BF16_TWINS[family],
+                                 "float32 sm90": F32_SM90_SSM_TWIN}[twin])
+    kw = dict(global_batch=8, num_micro=2,
+              seq_len=16 if twin == "float32" else 128)
     cpu = VirtualCluster(cfg, 2, 2, device="cpu", **kw)
     # the CPU cluster's own tensors: bf16 leaves stay bf16 on the card
     init = (cpu.stem, cpu.layer_params, cpu.head)
@@ -956,10 +1086,10 @@ def snapshot_matches_device(cl: VirtualCluster) -> bool:
     return True
 
 
-def phase_train(cfg, want: dict, **cluster_kw) -> tuple:
-    """3 steps of ``VirtualCluster.train_step`` at dp=2, pp=2, global batch
-    4 in 2 micro-batches, seq 4096, random weights from seed 1.  Returns
-    the launch counts and the cluster."""
+def phase_train(cfg, want: dict, steps: int = 3, **cluster_kw) -> tuple:
+    """``steps`` steps of ``VirtualCluster.train_step`` at dp=2, pp=2, global
+    batch 4 in 2 micro-batches, seq 4096, random weights from seed 1.
+    Returns the launch counts and the cluster."""
     t0 = time.perf_counter()
     cl = VirtualCluster(cfg, 2, 2, global_batch=4, num_micro=2, seq_len=4096,
                         device="cuda", **cluster_kw)
@@ -971,7 +1101,7 @@ def phase_train(cfg, want: dict, **cluster_kw) -> tuple:
         f"set-up {time.perf_counter() - t0:.1f} s")
     check(snapshot_matches_device(cl), "bootstrap snapshot != device state")
     _build.reset_launch_counts()
-    for step in range(3):
+    for step in range(steps):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         loss = cl.train_step()
@@ -985,7 +1115,7 @@ def phase_train(cfg, want: dict, **cluster_kw) -> tuple:
         check(snapshot_matches_device(cl),
               f"step {step}: host ring snapshot != device shards")
     launches = dict(_build.LAUNCHES)
-    log(f"launches over 3 steps: {launches}")
+    log(f"launches over {steps} steps: {launches}")
     check(launches == want, f"launch counts {launches} != {want}")
     return launches, cl
 
@@ -1110,18 +1240,26 @@ def main() -> None:
           f"tiny dense twin (float32, head_dim 16) must take the 3xTF32 "
           f"flash route only: {tiny}")
     tiny_ssm = phase_tiny_twin("ssm")
-    check(tiny_ssm["ssd_scan_sm90"] == 0 and tiny_ssm["ssd_scan"] > 0,
-          f"tiny ssm twin (float32) must take the CUDA-core SSD route only: "
-          f"{tiny_ssm}")
-    tiny_bf16 = phase_tiny_twin("dense", bf16=True)
+    check(tiny_ssm["ssd_scan"] > 0 and tiny_ssm["ssd_scan_sm90"] == 0
+          and tiny_ssm["ssd_scan_sm90_f32"] == 0,
+          f"tiny ssm twin (float32, chunk 8) must take the CUDA-core SSD "
+          f"route only: {tiny_ssm}")
+    tiny_ssm_f32 = phase_tiny_twin("ssm", "float32 sm90")
+    check(tiny_ssm_f32["ssd_scan_sm90_f32"] > 0
+          and tiny_ssm_f32["ssd_scan"] == 0
+          and tiny_ssm_f32["ssd_scan_sm90"] == 0,
+          f"tiny ssm twin (float32, headdim 64, state 64, chunk 64) must "
+          f"take the float32 tensor-core SSD route only: {tiny_ssm_f32}")
+    tiny_bf16 = phase_tiny_twin("dense", "bf16")
     check(tiny_bf16["flash_attention_sm90"] > 0
           and tiny_bf16["flash_attention"] == 0
           and tiny_bf16["flash_attention_tf32"] == 0,
           f"tiny dense twin (bf16, head_dim 64) must take the wgmma flash "
           f"route only: {tiny_bf16}")
-    tiny_ssm_bf16 = phase_tiny_twin("ssm", bf16=True)
+    tiny_ssm_bf16 = phase_tiny_twin("ssm", "bf16")
     check(tiny_ssm_bf16["ssd_scan_sm90"] > 0
-          and tiny_ssm_bf16["ssd_scan"] == 0,
+          and tiny_ssm_bf16["ssd_scan"] == 0
+          and tiny_ssm_bf16["ssd_scan_sm90_f32"] == 0,
           f"tiny ssm twin (bf16, headdim 64, state 64, chunk 64) must take "
           f"the tensor-core SSD route only: {tiny_ssm_bf16}")
     twin_dense = phase_tiny_recovery_twin("dense")
@@ -1131,9 +1269,12 @@ def main() -> None:
           f"tiny dense recovery twin (float32) must take the 3xTF32 flash "
           f"route only: {twin_dense}")
     twin_ssm = phase_tiny_recovery_twin("ssm")
-    shape_errs = kernel_recovery_shapes(gen)
-    for name, err in shape_errs.items():
-        recs[name]["recovery_shapes_max_abs_err"] = err
+    check(twin_ssm["ssd_scan"] > 0 and twin_ssm["ssd_scan_sm90"] == 0
+          and twin_ssm["ssd_scan_sm90_f32"] == 0,
+          f"tiny ssm recovery twin (float32, chunk 8) must take the "
+          f"CUDA-core SSD route only: {twin_ssm}")
+    for name, errs in kernel_path_shapes(gen).items():
+        recs[name].update(errs)
     torch.cuda.empty_cache()
     paths = {"codeqwen1.5-7b": phase_train(
         dataclasses.replace(cfg, num_layers=2), DENSE_LAUNCHES)[0]}
@@ -1144,6 +1285,15 @@ def main() -> None:
         hw=H100_HW)
     paths["mamba2-2.7b recovery"], recoveries = phase_recovery(ssm)
     del ssm
+    gc.collect()           # free the bf16 mamba2 cluster's host and card state
+    torch.cuda.empty_cache()
+    # this slice's path: the float32 mamba2 step on the float32 tensor-core
+    # SSD route, depth cut to 2 layers, 2 steps
+    paths["mamba2-2.7b float32"] = phase_train(
+        dataclasses.replace(mamba2_2p7b.config(), num_layers=2,
+                            dtype="float32"), SSM_F32_LAUNCHES, steps=2)[0]
+    gc.collect()
+    torch.cuda.empty_cache()
     kernels = [dict(name=name, route="cuda", source=SOURCES[name][0],
                     replaces=SOURCES[name][1],
                     launches=sum(p[name] for p in paths.values()),
@@ -1151,8 +1301,9 @@ def main() -> None:
                     **({"design": DESIGNS[name]} if name in DESIGNS else {}),
                     **recs[name]) for name in SOURCES]
     # the float32 flash route and the CUDA-core SSD kernel are off the main
-    # paths (they train in bf16); the tiny float32 twins are where they
-    # run.  The bf16 twins run the tensor-core routes at small widths.
+    # paths; the tiny float32 twins are where they run.  The bf16 twins and
+    # the float32 chunk-64 ssm twin run the tensor-core routes at small
+    # widths.
     by_name = {k["name"]: k for k in kernels}
     for name, path, counts in (
             ("flash_attention_tf32", "tiny-dense twin (float32)", tiny),
@@ -1160,6 +1311,8 @@ def main() -> None:
              twin_dense),
             ("ssd_scan", "tiny-ssm twin (float32)", tiny_ssm),
             ("ssd_scan", "tiny-ssm recovery twin (float32)", twin_ssm),
+            ("ssd_scan_sm90_f32", "tiny-ssm twin (float32, chunk 64)",
+             tiny_ssm_f32),
             ("flash_attention_sm90", "tiny-dense twin (bf16)", tiny_bf16),
             ("ssd_scan_sm90", "tiny-ssm twin (bf16)", tiny_ssm_bf16)):
         by_name[name]["launches_by_path"][path] = counts[name]

@@ -47,12 +47,14 @@ SIGNATURES = {
     "repro_ssd_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        *[_LL] * 12, _I, _P],
     "repro_ssd_scan_sm90": [*[_P] * 10, *[_I] * 7, *[_LL] * 12, _P],
+    "repro_ssd_scan_sm90_f32": [*[_P] * 10, *[_I] * 7, *[_LL] * 12, _P],
 }
 #: kernel launches by kernel name, added to only by :func:`launch`
 LAUNCHES: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
                             "fused_adam": 0, "ssd_scan": 0,
                             "flash_attention_sm90": 0, "ssd_scan_sm90": 0,
-                            "flash_attention_tf32": 0}
+                            "flash_attention_tf32": 0,
+                            "ssd_scan_sm90_f32": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 last_build_seconds: float = 0.0

@@ -5,10 +5,10 @@
 // _ssd_kernel), together with the group-to-head broadcast its wrapper
 // repro/kernels/ops.py:ssd_scan does around it, for bf16 at p <= 64,
 // n <= 128 (multiples of 16) and chunk a multiple of 64: mamba2-2.7b's p 64,
-// n 128, chunk 256.  float32 and other widths take the CUDA-core kernel in
-// ssd_scan.cu.  Per (batch, head), with dA_j = dt_j A, cum the running sum of
-// dA inside a chunk, w_j = dt_j exp(cum_last - cum_j) and L_ij =
-// exp(cum_i - cum_j) for i >= j:
+// n 128, chunk 256.  float32 at those widths takes ssd_scan_sm90_f32.cu,
+// other widths the CUDA-core kernel in ssd_scan.cu.  Per (batch, head),
+// with dA_j = dt_j A, cum the running sum of dA inside a chunk, w_j = dt_j
+// exp(cum_last - cum_j) and L_ij = exp(cum_i - cum_j) for i >= j:
 //   S_c     = sum_j x_j w_j B_j^T                       (chunk's state part)
 //   H_0 = 0, H_{c+1} = exp(cum_last_c) H_c + S_c        (entering states)
 //   y_i     = sum_{j<=i} ((C_i.B_j) L_ij dt_j) x_j + exp(cum_i) C_i.H_c^T
@@ -38,10 +38,11 @@
 //    w, exp(cum_last) to `seg`, and S_c = (x o w)^T B with the 64-row tiles
 //    of x and B double-buffered through cp.async.  Each of 8 warps owns
 //    16 p x 64 n of S_c.
-// 2. ssd_state_pass_kernel, one thread per four (batch*head, p, n)
-//    elements: walks the chunks in order, replacing S_c by H_c (c >= 1) in
-//    place, in float32, with the S_c of 8 chunks loaded before the first is
-//    used.  Slot 0 keeps S_0: H_0 = 0 is never read.
+// 2. ssd_state_pass_kernel (ssd_scan_sm90_common.cuh, shared with the
+//    float32 route), one thread per four (batch*head, p, n) elements:
+//    walks the chunks in order, replacing S_c by H_c (c >= 1) in place, in
+//    float32, with the S_c of 8 chunks loaded before the first is used.
+//    Slot 0 keeps S_0: H_0 = 0 is never read.
 // 3. ssd_chunk_out_kernel, one 128-thread block per (chunk, batch*head,
 //    64-row tile i), three an SM, longest (last) tiles launched first: each
 //    of 4 warps owns 16 rows i.  C_i, cum and dt arrive in one cp.async
@@ -90,19 +91,13 @@
 
 #include <math.h>
 
+#include "ssd_scan_sm90_common.cuh"
+
 namespace {
 
-constexpr int kTile = 64;          // rows of a chunk tile (i or j)
-constexpr int kMaxChunk = 256;
-constexpr int kMaxP = 64;
-constexpr int kMaxN = 128;
 constexpr int kRowX = kMaxP + 8;   // bf16 row pitch of x tiles (144 bytes)
 constexpr int kRowN = kMaxN + 8;   // bf16 row pitch of B, C, H tiles (272)
-constexpr int kStateThreads = 256;
 constexpr int kOutThreads = 128;
-constexpr int kPassThreads = 256;
-constexpr int kPassBatch = 8;      // chunk states a state_pass thread loads
-                                   // before it uses them
 
 struct Args {
   const __nv_bfloat16* x;   // [b, s, h, p], unit p stride
@@ -145,27 +140,6 @@ static_assert(kMaxP <= kTile && sizeof(__nv_bfloat16[kMaxP][kRowN]) <=
                                     sizeof(__nv_bfloat16[2][kTile][kRowX]),
               "H pieces share the B and x tiles' buffers");
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most `pending` of this thread's groups are in flight
-template <int pending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
-}
-
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -180,35 +154,6 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p))
       : "memory");
-}
-
-// d += a.b: a 16x16 (row), b 16x8 (col), bf16; d 16x8 float32
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (u, v) as three bf16 pairs, u in the low half of each: u = u_hi + u_mid
-// + u_lo to 2^-26 |u|, all 24 bits of a float32.  Each piece is rounded to
-// nearest even and each remainder (u - u_hi, then minus u_mid) is exact.
-__device__ __forceinline__ void split3(float u, float v, uint32_t& hi,
-                                       uint32_t& mid, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(u, v);
-  const float2 hf = __bfloat1622float2(h);
-  u -= hf.x;
-  v -= hf.y;
-  const __nv_bfloat162 m = __floats2bfloat162_rn(u, v);
-  const float2 mf = __bfloat1622float2(m);
-  hi = as_u32(h);
-  mid = as_u32(m);
-  lo = as_u32(__floats2bfloat162_rn(u - mf.x, v - mf.y));
 }
 
 // d[2i], d[2i+1] += (a_hi + a_mid + a_lo).b_i for the two 8-wide column
@@ -241,31 +186,6 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16 (*dst)[kRow],
     const int r = idx / per_row, k = (idx % per_row) << 3;
     cp_async16(&dst[r][k], src + r * ss + k);
   }
-}
-
-// cum[r] = sum_{k <= r} (double)(dt_k A) and dts[r] = dt_k for the `rows`
-// rows of a chunk, one a thread; ends with a barrier
-__device__ void chunk_cumsum(double* cum, float* dts, double* warp_tot,
-                             const float* dt, long long dt_ss, float Ah,
-                             int rows) {
-  static_assert(kStateThreads == kMaxChunk, "one row a thread");
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r = threadIdx.x;
-  const float d = r < rows ? dt[r * dt_ss] : 0.f;
-  double v = (double)(d * Ah);
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const double u = __shfl_up_sync(0xffffffffu, v, off);
-    if (lane >= off) v += u;
-  }
-  if (lane == 31) warp_tot[warp] = v;
-  __syncthreads();
-  for (int w = 0; w < warp; ++w) v += warp_tot[w];
-  if (r < rows) {
-    cum[r] = v;
-    dts[r] = d;
-  }
-  __syncthreads();
 }
 
 // ---------------------------------------------------------------------------
@@ -364,43 +284,6 @@ __global__ void __launch_bounds__(kStateThreads, 2)
           make_float2(acc[nt][2], acc[nt][3]);
     }
   }
-}
-
-// ---------------------------------------------------------------------------
-// H_{c+1} = seg_c H_c + S_c from H_0 = 0, in float32 (the multiply and the
-// add each rounded, as the reference's state update), each H_c (c >= 1)
-// written over S_c once S_c is read.  Four neighbouring elements a thread;
-// the S_c of kPassBatch chunks are loaded before the first is used.
-__global__ void __launch_bounds__(kPassThreads)
-    ssd_state_pass_kernel(float* __restrict__ ws,
-                          const float* __restrict__ seg, int nc, int PN,
-                          long long quads) {
-  const long long idx = (long long)blockIdx.x * kPassThreads + threadIdx.x;
-  if (idx >= quads) return;
-  const long long per_bh = PN >> 2;
-  const long long bh = idx / per_bh;
-  float4* slot = reinterpret_cast<float4*>(ws + bh * nc * PN) + idx % per_bh;
-  const float* sg = seg + bh * nc;
-  float4 h = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int c0 = 0; c0 + 1 < nc; c0 += kPassBatch) {
-    float4 sv[kPassBatch];
-#pragma unroll
-    for (int k = 0; k < kPassBatch; ++k)
-      if (c0 + k + 1 < nc) sv[k] = slot[(long long)(c0 + k) * per_bh];
-#pragma unroll
-    for (int k = 0; k < kPassBatch; ++k) {
-      const int c = c0 + k;
-      if (c + 1 < nc) {
-        if (c > 0) slot[(long long)c * per_bh] = h;
-        const float d = sg[c];
-        h.x = __fadd_rn(__fmul_rn(d, h.x), sv[k].x);
-        h.y = __fadd_rn(__fmul_rn(d, h.y), sv[k].y);
-        h.z = __fadd_rn(__fmul_rn(d, h.z), sv[k].z);
-        h.w = __fadd_rn(__fmul_rn(d, h.w), sv[k].w);
-      }
-    }
-  }
-  slot[(long long)(nc - 1) * per_bh] = h;
 }
 
 // ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Mamba2 SSD chunk scan — launchers of the CUDA kernels
-``csrc/ssd_scan_sm90.cu`` and ``csrc/ssd_scan.cu``.
+``csrc/ssd_scan_sm90.cu``, ``csrc/ssd_scan_sm90_f32.cu`` and
+``csrc/ssd_scan.cu``.
 
 Replace ``repro/kernels/ssd_scan.py:ssd_scan_kernel`` and the group-to-head
 broadcast of ``repro/kernels/ops.py:ssd_scan``: the kernels read B and C at
@@ -7,16 +8,21 @@ group level, and x, B and C through their strides (in the model x, B and C
 are views of one activation), so no broadcast or contiguous copies are made.
 Scans from a zero state; float32 math, y in x's dtype.
 
-The route is chosen by dtype and widths alone (:func:`uses_sm90`):
+The route is chosen by dtype and widths alone.  At the tensor-core widths
+(``p % 16 == 0``, ``p <= 64``, ``n % 16 == 0``, ``n <= 128`` and
+``chunk % 64 == 0``: mamba2-2.7b's p 64, n 128, chunk 256):
 
-- bf16 with ``p % 16 == 0``, ``p <= 64``, ``n % 16 == 0``, ``n <= 128`` and
-  ``chunk % 64 == 0`` (mamba2-2.7b: p 64, n 128, chunk 256): the
-  tensor-core kernel, chunk-parallel.  It reads x, B and C with 16-byte
-  ``cp.async``, so each needs a unit last stride, a base and every other
-  stride a multiple of 16 bytes; anything else raises.
-- everything else (float32, other bf16 widths): the CUDA-core kernel, which
-  reads any strides (a tensor whose last stride is not 1 is made
-  contiguous).
+- bf16 (:func:`uses_sm90`): ``ssd_scan_sm90.cu``, chunk-parallel on the
+  tensor cores, counted as ``ssd_scan_sm90``;
+- float32 (:func:`uses_sm90_f32`): ``ssd_scan_sm90_f32.cu``, the same
+  chunk-parallel form with every product split into bf16 pieces to float32
+  accuracy, counted as ``ssd_scan_sm90_f32``.
+
+Both read x, B and C with 16-byte ``cp.async``, so each needs a unit last
+stride, a base and every other stride a multiple of 16 bytes; anything else
+raises.  Every other width (the tiny configurations' chunk 8, p 16, n 16)
+takes the CUDA-core kernel ``ssd_scan.cu``, counted as ``ssd_scan``, which
+reads any strides (a tensor whose last stride is not 1 is made contiguous).
 
 A failed launch raises; no route takes over from another.
 """
@@ -33,11 +39,19 @@ SM90_MAX_P = 64
 SM90_TILE = 64     # rows of the tensor-core kernel's chunk tiles
 
 
+def _tensor_core_widths(p: int, n: int, chunk: int) -> bool:
+    return (p % 16 == 0 and 0 < p <= SM90_MAX_P and n % 16 == 0
+            and 0 < n <= MAX_STATE and chunk % SM90_TILE == 0)
+
+
 def uses_sm90(dtype: torch.dtype, p: int, n: int, chunk: int) -> bool:
-    """True where the tensor-core kernel is the route."""
-    return (dtype == torch.bfloat16 and p % 16 == 0 and 0 < p <= SM90_MAX_P
-            and n % 16 == 0 and 0 < n <= MAX_STATE
-            and chunk % SM90_TILE == 0)
+    """True where the bf16 tensor-core kernel is the route."""
+    return dtype == torch.bfloat16 and _tensor_core_widths(p, n, chunk)
+
+
+def uses_sm90_f32(dtype: torch.dtype, p: int, n: int, chunk: int) -> bool:
+    """True where the float32 tensor-core kernel is the route."""
+    return dtype == torch.float32 and _tensor_core_widths(p, n, chunk)
 
 
 def _require_card(*ts: torch.Tensor) -> None:
@@ -90,20 +104,26 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                   B: torch.Tensor, C: torch.Tensor, chunk: int) -> torch.Tensor:
     """x: [b,s,h,p]; dt: [b,s,h]; A: [h]; B, C: [b,s,g,n], all on one card.
     Returns y: [b,s,h,p] in x's dtype, from the route :func:`uses_sm90`
-    picks.
+    and :func:`uses_sm90_f32` pick.
 
     Checks the kernels' own limits (chunk, n, alignment on the tensor-core
     route); ``h % g == 0`` and ``s % chunk == 0`` are the caller's to hold,
     as ``ops.ssd_scan`` does."""
-    if uses_sm90(x.dtype, x.shape[-1], B.shape[-1], chunk):
-        return _ssd_scan_sm90(x, dt, A, B, C, chunk)
+    p, n = x.shape[-1], B.shape[-1]
+    if uses_sm90(x.dtype, p, n, chunk):
+        return _ssd_scan_tensor_cores("ssd_scan_sm90", x, dt, A, B, C, chunk)
+    if uses_sm90_f32(x.dtype, p, n, chunk):
+        return _ssd_scan_tensor_cores("ssd_scan_sm90_f32", x, dt, A, B, C,
+                                      chunk)
     return ssd_scan_cuda_cores(x, dt, A, B, C, chunk)
 
 
-def _ssd_scan_sm90(x, dt, A, B, C, chunk: int) -> torch.Tensor:
-    """The tensor-core kernel (``csrc/ssd_scan_sm90.cu``), for inputs
-    :func:`uses_sm90` accepts: three kernels on the caller's stream,
-    counted as one launch of ``ssd_scan_sm90``.  Allocates their workspace:
+def _ssd_scan_tensor_cores(kernel: str, x, dt, A, B, C,
+                           chunk: int) -> torch.Tensor:
+    """A tensor-core kernel, ``csrc/<kernel>.cu`` (C entry
+    ``repro_<kernel>``), for inputs its predicate accepts: three kernels on
+    the caller's stream, counted as one launch of ``kernel``.  The bf16 and
+    float32 kernels take the same arguments.  Allocates their workspace:
     the chunks' state parts, then in place their entering states (float32,
     b*h*(s/chunk)*p*n elements), exp of each chunk's decay, and the decay's
     running sums (float64) and dt (float32) for each row."""
@@ -120,7 +140,7 @@ def _ssd_scan_sm90(x, dt, A, B, C, chunk: int) -> torch.Tensor:
     seg = torch.empty(b * h * nc, dtype=torch.float32, device=x.device)
     cum = torch.empty(b * h * s, dtype=torch.float64, device=x.device)
     dts = torch.empty(b * h * s, dtype=torch.float32, device=x.device)
-    _build.launch("ssd_scan_sm90", "repro_ssd_scan_sm90",
+    _build.launch(kernel, f"repro_{kernel}",
                   x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                   C.data_ptr(), y.data_ptr(), ws.data_ptr(), seg.data_ptr(),
                   cum.data_ptr(), dts.data_ptr(),

@@ -232,7 +232,8 @@ def test_flash_counts_each_route_under_its_own_kernel(monkeypatch):
                                "fused_adam": 0, "ssd_scan": 0,
                                "flash_attention_sm90": 3,
                                "ssd_scan_sm90": 0,
-                               "flash_attention_tf32": 2}
+                               "flash_attention_tf32": 2,
+                               "ssd_scan_sm90_f32": 0}
 
 
 def test_flash_requires_card():

@@ -8,8 +8,8 @@ bf16 pieces; state_pass's float32 recurrence over the chunks, each entering
 state split into three bf16 pieces; chunk_out's M = (C B^T) o L o dt split
 into three bf16 pieces against x, plus exp(cum) C H^T; y rounded once to
 bf16.  The emulation is held to the ``ssd_scan_bf16`` tier against the JAX
-package's sequential oracle on the same numpy inputs.  The dispatch between
-the two CUDA routes and the wrapper's argument checks are tested with the
+package's sequential oracle on the same numpy inputs.  The dispatch among
+the CUDA routes and the wrapper's argument checks are tested with the
 launch monkeypatched.
 """
 import numpy as np
@@ -217,7 +217,15 @@ def _views(s, h, p, g, n, dtype, pad=0, offset=0):
 @pytest.mark.parametrize("dtype,p,n,chunk,entry", [
     (torch.bfloat16, 64, 128, 256, "repro_ssd_scan_sm90"),
     (torch.bfloat16, 16, 32, 64, "repro_ssd_scan_sm90"),
-    (torch.float32, 64, 128, 256, "repro_ssd_scan"),
+    (torch.float32, 64, 128, 256, "repro_ssd_scan_sm90_f32"),
+    (torch.float32, 64, 64, 64, "repro_ssd_scan_sm90_f32"),
+    (torch.float32, 16, 32, 128, "repro_ssd_scan_sm90_f32"),
+    (torch.float32, 16, 16, 8, "repro_ssd_scan"),
+    (torch.float32, 64, 128, 32, "repro_ssd_scan"),
+    (torch.float32, 128, 128, 256, "repro_ssd_scan"),
+    (torch.float32, 64, 24, 256, "repro_ssd_scan"),
+    (torch.bfloat16, 64, 64, 64, "repro_ssd_scan_sm90"),
+    (torch.bfloat16, 16, 16, 8, "repro_ssd_scan"),
     (torch.bfloat16, 128, 128, 256, "repro_ssd_scan"),
     (torch.bfloat16, 24, 128, 256, "repro_ssd_scan"),
     (torch.bfloat16, 64, 24, 256, "repro_ssd_scan"),
@@ -230,10 +238,10 @@ def test_ssd_dispatch_by_dtype_and_widths(recorded_launches, dtype, p, n,
     ssd.ssd_scan_cuda(*ins, chunk)
     ((kernel, got, args),) = recorded_launches
     assert got == entry
-    assert kernel == ("ssd_scan_sm90" if entry.endswith("sm90")
-                      else "ssd_scan")
+    assert kernel == entry.removeprefix("repro_")
     assert len(args) == len(_build.SIGNATURES[entry])      # stream last
     assert ssd.uses_sm90(dtype, p, n, chunk) == entry.endswith("sm90")
+    assert ssd.uses_sm90_f32(dtype, p, n, chunk) == entry.endswith("f32")
 
 
 def test_ssd_sm90_takes_xbc_views_in_place(recorded_launches):
@@ -291,7 +299,8 @@ def test_ssd_counts_each_route_under_its_own_kernel(monkeypatch):
     ssd.ssd_scan_cuda_cores(*_views(256, 4, 64, 1, 128, torch.bfloat16),
                             256)
     assert _build.LAUNCHES["ssd_scan_sm90"] == 3
-    assert _build.LAUNCHES["ssd_scan"] == 3
+    assert _build.LAUNCHES["ssd_scan_sm90_f32"] == 2
+    assert _build.LAUNCHES["ssd_scan"] == 1
     assert sum(_build.LAUNCHES.values()) == 6
 
 
