@@ -8,21 +8,24 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. device: the card's name and power limit (``nvidia-smi``); no card, exit 1;
 2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc),
    and the tensor-core kernels' SASS (``cuobjdump``) checked: bf16 flash
-   for HGMMA in both forms and UTMALDG, float32 flash for
+   at head_dim 64/128 for HGMMA in both forms and UTMALDG, float32 flash for
    HMMA.1688.F32.TF32 (mma.sync, TF32 in) with its instruction mix
-   printed, both SSD routes' three kernels (bf16 and float32) for HMMA
-   (bf16, float32 accumulators) and LDGSTS (cp.async), the float32 SSD
-   route's instruction mix printed, and the float32 flash and every SSD
-   kernel for no local-memory traffic (spills);
+   printed, bf16 flash at head_dim 16/32 and both SSD routes' three kernels
+   (bf16 and float32) for HMMA.16816.F32.BF16 (bf16 in, float32
+   accumulators) and LDGSTS (cp.async), the head_dim-32 flash kernel's and
+   the float32 SSD route's instruction mixes printed, and every mma.sync
+   flash and SSD kernel for no local-memory traffic (spills);
 3. every kernel against its plain PyTorch version on the card at the main
    paths' shapes (rmsnorm [4096, 4096]; flash attention [1, 4096, 32, 128]
-   causal on all three routes: float32 on the 3xTF32 tensor-core route MHA
+   causal on all four routes: float32 on the 3xTF32 tensor-core route MHA
    and GQA, plus head_dim 16 and 64, ragged S 4000, bidirectional and a
    peaked softmax, each also against a float64 evaluation, with the
-   CUDA-core kernel on the main case's inputs; bf16 at head_dim 32 on the
-   CUDA cores, timed there beside SDPA; bf16 on the tensor cores MHA and
-   GQA, plus head_dim 64, ragged S 4000, bidirectional, a peaked softmax
-   and strided projection views; fused AdamW bitwise against the numpy
+   CUDA-core kernel on the main case's inputs; bf16 at head_dim 16 and 32
+   on the bf16 mma.sync route, each MHA and GQA, ragged S 4000,
+   bidirectional, a peaked softmax and strided projection views, with the
+   CUDA-core kernel on the MHA case's inputs; bf16 on the wgmma route MHA
+   and GQA, plus head_dim 64, ragged S 4000, bidirectional, a peaked
+   softmax and strided projection views; fused AdamW bitwise against the numpy
    oracle over 3 steps, at n % 4 != 0 and on views off a 16-byte boundary;
    the SSD scan at [1, 4096, 80, 64] with n 128, chunk 256, against the
    sequential oracle: bf16 on the bf16 tensor-core route, fp32 on the
@@ -32,7 +35,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    inputs; the float32 route also at four narrower widths, p 16/32/48 and
    n 32/48/80/112, so that each of its builds is checked), with kernel,
    plain-version and library-call times (rmsnorm and ``F.rms_norm``, each
-   flash route and ``F.scaled_dot_product_attention`` interleaved; each SSD
+   flash route and ``F.scaled_dot_product_attention`` interleaved, the
+   bf16 mma.sync route with the CUDA-core kernel too; each SSD
    route beside
    the CUDA-core kernel and ``ref.ssd_chunked`` in the same dtype,
    composed of cuBLAS products);
@@ -45,7 +49,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    seq 128) within the same bounds, every SSD launch on the float32
    tensor-core route; the same widths in bf16 (dense head_dim 64),
    within the bf16 twins' bound, every flash or SSD launch on the bf16
-   tensor-core routes; then both float32 twins through the
+   tensor-core routes; the tiny dense config in bf16 at d_model 64 and 128
+   (head_dim 16 and 32), within the same bound, every flash launch on the
+   bf16 mma.sync route; then both float32 twins through the
    recovery sequence of ``tests/test_torch_recovery.py`` (fail-stop found
    by the probes with a corrupted snapshot, scale-out, fail-slow with a
    layer migration, drain with a corrupted snapshot, a two-rank burst,
@@ -105,7 +111,8 @@ from repro_torch.core.events import ElasticEvent, EventKind  # noqa: E402
 from repro_torch.core.fabric.snapshot import SnapshotPool  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_cuda, flash_attention_cuda_cores, uses_sm90, uses_tf32)
+    flash_attention_cuda, flash_attention_cuda_cores, uses_bf16_mma,
+    uses_sm90, uses_tf32)
 from repro_torch.kernels.fused_adam import fused_adam_cuda_  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
@@ -140,6 +147,11 @@ BF16_TWINS = {
     "ssm": dict(dtype="bfloat16", ssm_headdim=64, ssm_state=64,
                 ssm_chunk=64, num_layers=2),
 }
+# the bf16 tiny dense configurations at the mma.sync route's head_dims: the
+# tiny config's 4 heads and 2 kv heads at d_model 64 and 128
+# (tests/test_torch_bf16_twin.py "dense-hd16", "dense-hd32")
+BF16_MMA_TWINS = {"bf16 hd16": dict(dtype="bfloat16"),
+                  "bf16 hd32": dict(dtype="bfloat16", d_model=128)}
 # the float32 tiny ssm twin on the float32 tensor-core SSD route
 # (ssd_scan_sm90_f32): the bf16 ssm twin's widths in float32
 F32_SM90_SSM_TWIN = dict(BF16_TWINS["ssm"], dtype="float32")
@@ -152,6 +164,9 @@ SOURCES = {
         "src/repro/kernels/flash_attention.py:78"),
     "flash_attention_tf32": (
         "src/repro_torch/kernels/csrc/flash_attention_tf32.cu",
+        "src/repro/kernels/flash_attention.py:78"),
+    "flash_attention_bf16_mma": (
+        "src/repro_torch/kernels/csrc/flash_attention_bf16_mma.cu",
         "src/repro/kernels/flash_attention.py:78"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:78"),
@@ -173,8 +188,12 @@ DESIGNS = {
                             "from the score accumulators, short fresh "
                             "accumulator chains, K/V by cp.async in two "
                             "stages",
-    "flash_attention": "bf16 at head_dim 16/32, and float32 only when "
-                       "launched explicitly: float32 FMAs on the CUDA "
+    "flash_attention_bf16_mma": "bf16, head_dim 16/32: mma.sync m16n8k16 for "
+                                "both products, P.V from the score "
+                                "accumulators as bf16 hi + lo, K/V by "
+                                "cp.async, ldmatrix (.trans for V)",
+    "flash_attention": "only when launched explicitly (bf16 at head_dim "
+                       "16/32, float32 at any): float32 FMAs on the CUDA "
                        "cores",
     "ssd_scan_sm90": "bf16, p <= 64, n <= 128, chunk % 64 == 0: "
                      "chunk-parallel (chunk_state, state_pass, chunk_out), "
@@ -194,11 +213,11 @@ DESIGNS = {
 DENSE_LAUNCHES = {"rmsnorm": 60, "flash_attention": 0, "fused_adam": 6,
                   "ssd_scan": 0, "flash_attention_sm90": 24,
                   "ssd_scan_sm90": 0, "flash_attention_tf32": 0,
-                  "ssd_scan_sm90_f32": 0}
+                  "ssd_scan_sm90_f32": 0, "flash_attention_bf16_mma": 0}
 SSM_LAUNCHES = {"rmsnorm": 108, "flash_attention": 0, "fused_adam": 6,
                 "ssd_scan": 0, "flash_attention_sm90": 0,
                 "ssd_scan_sm90": 48, "flash_attention_tf32": 0,
-                "ssd_scan_sm90_f32": 0}
+                "ssd_scan_sm90_f32": 0, "flash_attention_bf16_mma": 0}
 # exact launches over the 2 steps of the float32 mamba2 path (2 layers, 4
 # items a step): per item one SSD scan a layer, two rmsnorms a layer (the
 # block's norm and the gated out_norm) and the final norm; one fused AdamW
@@ -206,13 +225,13 @@ SSM_LAUNCHES = {"rmsnorm": 108, "flash_attention": 0, "fused_adam": 6,
 SSM_F32_LAUNCHES = {"rmsnorm": 40, "flash_attention": 0, "fused_adam": 4,
                     "ssd_scan": 0, "flash_attention_sm90": 0,
                     "ssd_scan_sm90": 0, "flash_attention_tf32": 0,
-                    "ssd_scan_sm90_f32": 16}
+                    "ssd_scan_sm90_f32": 16, "flash_attention_bf16_mma": 0}
 # exact launches over the 4 steps of phase 7: after a shrink each step is 2
 # items of batch 2, after the scale-out 4 items of batch 1
 RECOVERY_LAUNCHES = {"rmsnorm": 108, "flash_attention": 0, "fused_adam": 8,
                      "ssd_scan": 0, "flash_attention_sm90": 0,
                      "ssd_scan_sm90": 48, "flash_attention_tf32": 0,
-                     "ssd_scan_sm90_f32": 0}
+                     "ssd_scan_sm90_f32": 0, "flash_attention_bf16_mma": 0}
 # phase 7: (name, recovery, layer_assignment, dp_ranks, per_rank_mbs after)
 # The fail-stop leaves stage 1 one rank wide, so the engine's graph plan
 # moves layer 2 to stage 0; the fail-slow of rank (0, 0) moves layers 1 and
@@ -360,12 +379,14 @@ def sass_check() -> None:
     (shared-memory A for Q.K^T, register A for P.V) and UTMALDG (TMA
     loads).  float32 flash (one kernel per head_dim) must hold
     HMMA.1688.F32.TF32 (mma.sync, TF32 in, float32 accumulators) and
-    LDGSTS, and its head_dim-128 kernel's instruction mix is printed.  The
-    SSD scan's chunk_state and chunk_out, on both tensor-core routes (bf16
-    and float32), must hold HMMA.16816.F32.BF16 (mma.sync, bf16 in, float32
-    accumulators) and LDGSTS (cp.async), and the float32 route's instruction
-    mix is printed.  None of the float32 flash and SSD kernels may touch
-    local memory (LDL/STL: spills)."""
+    LDGSTS, and its head_dim-128 kernel's instruction mix is printed.  bf16
+    flash at head_dim 16/32 (one kernel per head_dim), and the SSD scan's
+    chunk_state and chunk_out on both tensor-core routes (bf16 and
+    float32), must hold HMMA.16816.F32.BF16 (mma.sync, bf16 in, float32
+    accumulators) and LDGSTS (cp.async); the head_dim-32 flash kernel's and
+    the float32 SSD route's instruction mixes are printed.  None of the
+    mma.sync flash and SSD kernels may touch local memory (LDL/STL:
+    spills)."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(_build.build())],
                           capture_output=True, text=True, check=True).stdout
@@ -416,6 +437,22 @@ def sass_check() -> None:
         if hd and hd.group(1) == "128":
             top = sorted(mix[f].items(), key=lambda kv: -kv[1])[:14]
             log("  flash_fwd_tf32_kernel<128> instruction mix (static "
+                "count): " + ", ".join(f"{k} {v}" for k, v in top))
+    mma = {f: c for f, c in counts.items()
+           if "flash_fwd_bf16_mma_kernel" in f}
+    check(len(mma) == 2, f"expected 2 bf16 mma.sync flash kernels (head_dim "
+                         f"16, 32) in the SASS, found {len(mma)}")
+    for f, c in mma.items():
+        hd = re.search(r"flash_fwd_bf16_mma_kernelILi(\d+)E", f)
+        log(f"  SASS flash_fwd_bf16_mma_kernel<{hd.group(1) if hd else f}>: "
+            f"HMMA.16816.F32.BF16 {c['HMMA bf16']}, LDGSTS {c['LDGSTS']}, "
+            f"LDL/STL {c['LDL/STL']}")
+        check(c["HMMA bf16"] > 0 and c["LDGSTS"] > 0 and c["LDL/STL"] == 0,
+              f"{f}: HMMA.16816.F32.BF16 and LDGSTS and no LDL/STL expected: "
+              f"{c}")
+        if hd and hd.group(1) == "32":
+            top = sorted(mix[f].items(), key=lambda kv: -kv[1])[:14]
+            log("  flash_fwd_bf16_mma_kernel<32> instruction mix (static "
                 "count): " + ", ".join(f"{k} {v}" for k, v in top))
     for kernel, (instances, products) in SSD_SM90_KERNELS.items():
         found = sorted((f, c) for f, c in counts.items() if kernel in f)
@@ -473,12 +510,15 @@ def kernel_rmsnorm(gen) -> dict:
 
 def kernel_flash(gen) -> dict:
     """Flash attention at codeqwen's widths against the plain version under
-    the unchanged tiers, on all three routes: float32 on the 3xTF32
+    the unchanged tiers, on all four routes: float32 on the 3xTF32
     tensor-core route (MHA as on a float32 run of the model, GQA, head_dim
     16 and 64, ragged S, bidirectional, a peaked softmax), bf16 at head_dim
-    32 on the CUDA cores, and bf16 on the wgmma route (MHA as on the main
+    32 and 16 on the bf16 mma.sync route (MHA, GQA, ragged S,
+    bidirectional, a peaked softmax, and q/k/v as strided views of one
+    fused projection), and bf16 on the wgmma route (MHA as on the main
     path, GQA, head_dim 64, ragged S, bidirectional, a peaked softmax, and
-    q/k/v as strided views of one fused projection).
+    the projection views).  Every call must launch its route's kernel once
+    and nothing else.
 
     Every float32 case is also held to the ``flash_attention`` tier against
     the plain version evaluated in float64 on the same inputs.  At q x 4
@@ -486,14 +526,16 @@ def kernel_flash(gen) -> dict:
     tier (its scores carry float32 rounding of dot products up to ~200), so
     that case is gated against float64 alone and its misses against the
     float32 plain version are printed beside the plain version's own.  On
-    the main float32 case the CUDA-core kernel runs on the same inputs.
-    Each route is timed at its own main case beside SDPA: the tensor-core
-    routes at head_dim 128, the CUDA-core kernel at bf16 head_dim 32, the
-    shape it serves.  Returns the records of the float32 route, the
-    CUDA-core kernel and the bf16 route."""
+    the main float32 case and on the MHA bf16 cases at head_dim 16/32 the
+    CUDA-core kernel runs on the same inputs.  Each route is timed at its
+    own main case beside SDPA: the wgmma and 3xTF32 routes at head_dim 128,
+    the bf16 mma.sync route at head_dim 32 and 16 (with the CUDA-core
+    kernel interleaved).  Returns the records of the float32 route, the
+    bf16 mma.sync route, the CUDA-core kernel and the wgmma route."""
     B, S, H, hd = 1, 4096, 32, 128
     recs = {}
     cores_fp32 = {}     # the CUDA-core kernel on the float32 main case
+    small = {}          # head_dim -> the bf16 mma.sync route's numbers
     cases = (  # dtype, S, Hkv, hd, causal, q scale, layout
         (torch.float32, S, H, hd, True, 1.0, "dense"),
         (torch.float32, S, 8, hd, True, 1.0, "dense"),
@@ -502,7 +544,11 @@ def kernel_flash(gen) -> dict:
         (torch.float32, 4000, H, hd, True, 1.0, "dense"),
         (torch.float32, S, H, hd, False, 1.0, "dense"),
         (torch.float32, S, H, hd, True, 4.0, "dense"),
-        (torch.bfloat16, S, H, 32, True, 1.0, "dense"),
+        *((torch.bfloat16, s_, kv_, d_, c_, qs_, lay_) for d_ in (32, 16)
+          for s_, kv_, c_, qs_, lay_ in (
+              (S, H, True, 1.0, "dense"), (S, 8, True, 1.0, "dense"),
+              (4000, H, True, 1.0, "dense"), (S, H, False, 1.0, "dense"),
+              (S, H, True, 4.0, "dense"), (S, 8, True, 1.0, "projection"))),
         (torch.bfloat16, S, H, hd, True, 1.0, "dense"),
         (torch.bfloat16, S, 8, hd, True, 1.0, "dense"),
         (torch.bfloat16, S, H, 64, True, 1.0, "dense"),
@@ -526,12 +572,19 @@ def kernel_flash(gen) -> dict:
                                       device="cuda")).to(dtype)
             k, v = (torch.randn(B, s, Hkv, d, generator=gen,
                                 device="cuda").to(dtype) for _ in "kv")
-        route = "sm90" if uses_sm90(dtype, d) else \
-            "tf32" if uses_tf32(dtype, d) else "cuda-cores"
+        route = next(r for r, uses in (("sm90", uses_sm90),
+                                       ("tf32", uses_tf32),
+                                       ("bf16_mma", uses_bf16_mma))
+                     if uses(dtype, d))
         name = (f"flash {route} {dtype} S={s} H={H} Hkv={Hkv} hd={d} "
                 f"causal={causal} q*{qscale:g} {layout}")
         want = ref.gqa_attention_reference(q, k, v, causal=causal)
+        before = dict(_build.LAUNCHES)
         o = flash_attention_cuda(q, k, v, causal)
+        moved = {n: c - before[n] for n, c in _build.LAUNCHES.items()
+                 if c != before[n]}
+        check(moved == {f"flash_attention_{route}": 1},
+              f"{name}: launched {moved}")
         ok, err = within(o, want, tier)
         if dtype == torch.float32:
             want64 = ref.gqa_attention_reference(
@@ -552,18 +605,23 @@ def kernel_flash(gen) -> dict:
             log(f"{name}: max_abs_err {err:.3e} tier {tier_name} ok={ok}")
             check(ok, f"{name} outside {tier_name}")
         # time the main case of each route: MHA, causal, head_dim 128 on
-        # the tensor-core routes, head_dim 32 (bf16) on the CUDA cores
+        # the wgmma and 3xTF32 routes, head_dim 32 and 16 on the bf16
+        # mma.sync route
         if layout != "dense" or s != S or not causal or qscale != 1.0 \
-                or Hkv != H or (d != hd and route != "cuda-cores"):
+                or Hkv != H or (d != hd and route != "bf16_mma"):
             del q, k, v, o, want
             continue
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         shape = f"{str(dtype)[6:]} q, k, v [{B}, {s}, {H}, {d}] causal"
-        # kernel and library call in turn, 5 rounds of 10 launches
-        med = interleaved_medians(
-            {"kernel": lambda: flash_attention_cuda(q, k, v, True),
-             "library": lambda: F.scaled_dot_product_attention(
-                 qt, kt, vt, is_causal=True)}, 5, 10)
+        fns = {"kernel": lambda: flash_attention_cuda(q, k, v, True),
+               "library": lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True)}
+        if route == "bf16_mma":
+            fns["cuda cores"] = lambda: flash_attention_cuda_cores(
+                q, k, v, True)
+        # kernel and library call (and the CUDA-core kernel on the bf16
+        # mma.sync route's inputs) in turn, 5 rounds of 10 launches
+        med = interleaved_medians(fns, 5, 10)
         plain = time_ms(lambda: ref.gqa_attention_reference(
             q, k, v, causal=True), 3)
         pairs = B * H * S * (S + 1) // 2
@@ -605,16 +663,39 @@ def kernel_flash(gen) -> dict:
             del cores
         else:
             b, by = bound(nbytes, 4 * d * pairs, dtype)
+            rec = dict(shape=shape, max_abs_err=err, ms=med["kernel"],
+                       plain_ms=plain, bound_ms=b, bound_by=by,
+                       library_ms=med["library"])
+            cores_note = ""
+            if route == "bf16_mma":
+                cores = flash_attention_cuda_cores(q, k, v, True)
+                ok_c, err_c = within(cores, want, tier)
+                check(ok_c, f"the CUDA-core bf16 flash kernel at head_dim "
+                            f"{d} outside flash_attention_bf16")
+                rec.update(cuda_core_ms=med["cuda cores"],
+                           cuda_core_max_abs_err=err_c)
+                cores_note = (f" CUDA-core kernel {med['cuda cores']:.4f} "
+                              f"(max_abs_err {err_c:.3e})")
+                small[d] = rec
+                del cores
+            else:
+                recs["flash_attention_sm90"] = rec
             log(f"  {route} hd {d}: ms {med['kernel']:.4f} (median of 5 "
-                f"interleaved rounds of 10) plain_ms {plain:.3f} library_ms "
-                f"{med['library']:.4f} (F.scaled_dot_product_attention) "
-                f"bound_ms {b:.4f} ({by})")
-            recs["flash_attention_sm90" if route == "sm90"
-                 else "flash_attention"] = dict(
-                shape=shape, max_abs_err=err, ms=med["kernel"], plain_ms=plain,
-                bound_ms=b, bound_by=by, library_ms=med["library"])
+                f"interleaved rounds of 10){cores_note} plain_ms "
+                f"{plain:.3f} library_ms {med['library']:.4f} "
+                f"(F.scaled_dot_product_attention) bound_ms {b:.4f} ({by})")
         del q, k, v, o, want, qt, kt, vt
-    recs["flash_attention"].update(cores_fp32)
+    # the bf16 mma.sync route's record: head_dim 32, head_dim 16 beside it;
+    # the CUDA-core kernel's: its own times on the same bf16 inputs, and on
+    # the float32 main case's
+    recs["flash_attention_bf16_mma"] = dict(small[32], head_dim_16=small[16])
+    main32 = small[32]
+    recs["flash_attention"] = dict(
+        shape=main32["shape"], max_abs_err=main32["cuda_core_max_abs_err"],
+        ms=main32["cuda_core_ms"], plain_ms=main32["plain_ms"],
+        bound_ms=main32["bound_ms"], bound_by=main32["bound_by"],
+        library_ms=main32["library_ms"],
+        bf16_hd16_ms=small[16]["cuda_core_ms"], **cores_fp32)
     return recs
 
 
@@ -928,13 +1009,20 @@ def phase_tiny_twin(family: str, twin: str = "float32") -> dict:
     """3 steps of a tiny cluster on the card and on the CPU: the float32
     tiny configuration (seq 16) within the reference's kernel-consistency
     bounds; the bf16 configuration of ``BF16_TWINS`` (``twin="bf16"``, seq
-    128) within the bf16 twins' bound; or ``F32_SM90_SSM_TWIN``
+    128) or of ``BF16_MMA_TWINS`` (``twin="bf16 hd16"``, ``"bf16 hd32"``,
+    dense, seq 128) within the bf16 twins' bound; or ``F32_SM90_SSM_TWIN``
     (``twin="float32 sm90"``, seq 128) within the float32 bounds.  Returns
     the card's launch counts."""
     name = f"tiny {family} twin ({twin})"
-    bf16 = twin == "bf16"
+    bf16 = twin.startswith("bf16")
     cfg = tiny_config(family, **{"float32": {}, "bf16": BF16_TWINS[family],
-                                 "float32 sm90": F32_SM90_SSM_TWIN}[twin])
+                                 "float32 sm90": F32_SM90_SSM_TWIN,
+                                 **BF16_MMA_TWINS}[twin])
+    if twin in BF16_MMA_TWINS:
+        check(f"hd{cfg.head_dim}" == twin.split()[1]
+              and (cfg.num_heads, cfg.num_kv_heads) == (4, 2),
+              f"{name}: head_dim {cfg.head_dim}, heads {cfg.num_heads}/"
+              f"{cfg.num_kv_heads}")
     kw = dict(global_batch=8, num_micro=2,
               seq_len=16 if twin == "float32" else 128)
     cpu = VirtualCluster(cfg, 2, 2, device="cpu", **kw)
@@ -1256,6 +1344,15 @@ def main() -> None:
           and tiny_bf16["flash_attention_tf32"] == 0,
           f"tiny dense twin (bf16, head_dim 64) must take the wgmma flash "
           f"route only: {tiny_bf16}")
+    tiny_mma = {}
+    for twin in BF16_MMA_TWINS:
+        tiny_mma[twin] = phase_tiny_twin("dense", twin)
+        check(tiny_mma[twin]["flash_attention_bf16_mma"] > 0
+              and tiny_mma[twin]["flash_attention"] == 0
+              and tiny_mma[twin]["flash_attention_sm90"] == 0
+              and tiny_mma[twin]["flash_attention_tf32"] == 0,
+              f"tiny dense twin ({twin}) must take the bf16 mma.sync flash "
+              f"route only: {tiny_mma[twin]}")
     tiny_ssm_bf16 = phase_tiny_twin("ssm", "bf16")
     check(tiny_ssm_bf16["ssd_scan_sm90"] > 0
           and tiny_ssm_bf16["ssd_scan"] == 0
@@ -1300,10 +1397,10 @@ def main() -> None:
                     launches_by_path={k: p[name] for k, p in paths.items()},
                     **({"design": DESIGNS[name]} if name in DESIGNS else {}),
                     **recs[name]) for name in SOURCES]
-    # the float32 flash route and the CUDA-core SSD kernel are off the main
-    # paths; the tiny float32 twins are where they run.  The bf16 twins and
-    # the float32 chunk-64 ssm twin run the tensor-core routes at small
-    # widths.
+    # the float32 flash route, the bf16 mma.sync flash route and the
+    # CUDA-core SSD kernel are off the main paths; the tiny twins are where
+    # they run.  The bf16 twins and the float32 chunk-64 ssm twin run the
+    # tensor-core routes at small widths.
     by_name = {k["name"]: k for k in kernels}
     for name, path, counts in (
             ("flash_attention_tf32", "tiny-dense twin (float32)", tiny),
@@ -1314,6 +1411,8 @@ def main() -> None:
             ("ssd_scan_sm90_f32", "tiny-ssm twin (float32, chunk 64)",
              tiny_ssm_f32),
             ("flash_attention_sm90", "tiny-dense twin (bf16)", tiny_bf16),
+            *(("flash_attention_bf16_mma", f"tiny-dense twin ({twin})",
+               counts) for twin, counts in tiny_mma.items()),
             ("ssd_scan_sm90", "tiny-ssm twin (bf16)", tiny_ssm_bf16)):
         by_name[name]["launches_by_path"][path] = counts[name]
     log(card)

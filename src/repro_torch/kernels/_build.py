@@ -42,6 +42,8 @@ SIGNATURES = {
                                    *[_LL] * 9, _I, _F, _P],
     "repro_flash_attention_tf32": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    *[_LL] * 9, _I, _F, _P],
+    "repro_flash_attention_bf16_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       *[_LL] * 9, _I, _F, _P],
     "repro_fused_adam": [_P, _P, _P, _P, _LL, _F, _F, _F, _F, _F, _F, _F, _F,
                          _F, _P],
     "repro_ssd_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -54,7 +56,8 @@ LAUNCHES: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
                             "fused_adam": 0, "ssd_scan": 0,
                             "flash_attention_sm90": 0, "ssd_scan_sm90": 0,
                             "flash_attention_tf32": 0,
-                            "ssd_scan_sm90_f32": 0}
+                            "ssd_scan_sm90_f32": 0,
+                            "flash_attention_bf16_mma": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 last_build_seconds: float = 0.0

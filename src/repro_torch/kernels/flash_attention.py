@@ -1,6 +1,6 @@
 """Flash attention — launchers of the CUDA kernels
-``csrc/flash_attention_sm90.cu``, ``csrc/flash_attention_tf32.cu`` and
-``csrc/flash_attention.cu``.
+``csrc/flash_attention_sm90.cu``, ``csrc/flash_attention_tf32.cu``,
+``csrc/flash_attention_bf16_mma.cu`` and ``csrc/flash_attention.cu``.
 
 Replace ``repro/kernels/flash_attention.py:flash_attention_kernel`` and the
 GQA repeat / head folding of ``repro/kernels/ops.py:flash_attention``: the
@@ -9,21 +9,21 @@ kernels read q ``[B,S,H,hd]`` and k/v ``[B,S,Hkv,hd]`` through their strides
 and any ``S`` works.
 
 :func:`flash_attention_cuda` chooses the route by ``(dtype, head_dim)``
-alone:
+alone, and every route runs on the tensor cores:
 
-- bf16 at head_dim 64 or 128 (every model the port trains): the tensor-core
-  kernel (``wgmma`` + TMA).  TMA needs a unit head_dim stride, and the base
-  pointers and every other stride a multiple of 16 bytes; anything else
-  raises.
-- float32 at any head_dim: the 3xTF32 tensor-core kernel (``mma.sync``).
-  Its 16-byte ``cp.async`` loads need the same layout; a tensor that does
-  not have it is copied contiguous first.
-- bf16 at head_dim 16 or 32: the CUDA-core kernel, which reads any strides
-  (a tensor whose head_dim stride is not 1 is made contiguous).
+- bf16 at head_dim 64 or 128 (every model the port trains): ``wgmma`` +
+  TMA.  TMA needs a unit head_dim stride, and the base pointers and every
+  other stride a multiple of 16 bytes; anything else raises.
+- float32 at any head_dim: 3xTF32 ``mma.sync``.
+- bf16 at head_dim 16 or 32 (the tiny configs): bf16 ``mma.sync``.
 
-:func:`flash_attention_cuda_cores` launches the CUDA-core kernel explicitly,
-float32 included, so the two float32 routes can be run on the same inputs.
-A failed launch raises; no route takes over from another.
+The two ``mma.sync`` routes load by 16-byte ``cp.async``, which needs the
+same layout as TMA; a tensor that does not have it is copied contiguous
+first.  No dtype or head_dim reaches the CUDA-core kernel through
+:func:`flash_attention_cuda`: :func:`flash_attention_cuda_cores` launches
+it explicitly (float32 at any head_dim, bf16 at 16/32), so that it can be
+run beside the tensor-core routes on the same inputs.  A failed launch
+raises; no route takes over from another.
 """
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ from .rmsnorm import DTYPE_CODES
 
 HEAD_DIMS = (16, 32, 64, 128)
 SM90_HEAD_DIMS = (64, 128)
+BF16_MMA_HEAD_DIMS = (16, 32)
 
 
 def uses_sm90(dtype: torch.dtype, hd: int) -> bool:
@@ -44,6 +45,11 @@ def uses_sm90(dtype: torch.dtype, hd: int) -> bool:
 def uses_tf32(dtype: torch.dtype, hd: int) -> bool:
     """True where the 3xTF32 tensor-core kernel is the route."""
     return dtype == torch.float32 and hd in HEAD_DIMS
+
+
+def uses_bf16_mma(dtype: torch.dtype, hd: int) -> bool:
+    """True where the bf16 ``mma.sync`` kernel is the route."""
+    return dtype == torch.bfloat16 and hd in BF16_MMA_HEAD_DIMS
 
 
 def _require_card(*ts: torch.Tensor) -> None:
@@ -81,9 +87,9 @@ def _tma_strides(name: str, t: torch.Tensor) -> list:
 
 
 def _cp_async_ready(t: torch.Tensor) -> torch.Tensor:
-    """``t`` as the 3xTF32 kernel reads it: unit head_dim stride, base and
-    the strides it steps over multiples of 16 bytes; else a contiguous
-    copy (a new allocation, so its base is aligned too)."""
+    """``t`` as the ``mma.sync`` kernels read it: unit head_dim stride,
+    base and the strides it steps over multiples of 16 bytes; else a
+    contiguous copy (a new allocation, so its base is aligned too)."""
     ok = t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
         size == 1 or stride * t.element_size() % 16 == 0
         for size, stride in zip(t.shape[:3], t.stride()[:3]))
@@ -121,23 +127,26 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       B, S, H, Hkv, hd, *strides, int(causal),
                       float(hd ** -0.5), _stream(q))
         return o
-    if uses_tf32(q.dtype, hd):
-        q, k, v = (_cp_async_ready(t) for t in (q, k, v))
-        o = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
-        _build.launch("flash_attention_tf32", "repro_flash_attention_tf32",
-                      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                      B, S, H, Hkv, hd,
-                      *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                      int(causal), float(hd ** -0.5), _stream(q))
-        return o
-    return flash_attention_cuda_cores(q, k, v, causal)
+    # the mma.sync routes (_check leaves no other case): float32 at any
+    # head_dim, bf16 at head_dim 16/32
+    kernel = "flash_attention_tf32" if uses_tf32(q.dtype, hd) \
+        else "flash_attention_bf16_mma"
+    q, k, v = (_cp_async_ready(t) for t in (q, k, v))
+    o = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    _build.launch(kernel, f"repro_{kernel}",
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  B, S, H, Hkv, hd,
+                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                  int(causal), float(hd ** -0.5), _stream(q))
+    return o
 
 
 def flash_attention_cuda_cores(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, causal: bool) -> torch.Tensor:
-    """The CUDA-core kernel (``csrc/flash_attention.cu``): float32 at any
-    head_dim (``chip_smoke.py`` runs it beside the 3xTF32 route on the same
-    inputs) and bf16 at head_dim 16/32.  One launch of ``flash_attention``."""
+    """The CUDA-core kernel (``csrc/flash_attention.cu``), launched only
+    here: float32 at any head_dim and bf16 at head_dim 16/32
+    (``chip_smoke.py`` runs it beside the tensor-core routes on the same
+    inputs).  One launch of ``flash_attention``."""
     _check(q, k, v)
     B, S, H, hd = q.shape
     Hkv = k.shape[2]

@@ -152,8 +152,8 @@ def recorded_launches(monkeypatch):
     (torch.bfloat16, 64, "repro_flash_attention_sm90"),
     (torch.float32, 128, "repro_flash_attention_tf32"),
     (torch.float32, 64, "repro_flash_attention_tf32"),
-    (torch.bfloat16, 32, "repro_flash_attention"),
-    (torch.bfloat16, 16, "repro_flash_attention"),
+    (torch.bfloat16, 32, "repro_flash_attention_bf16_mma"),
+    (torch.bfloat16, 16, "repro_flash_attention_bf16_mma"),
 ])
 def test_flash_dispatch_by_dtype_and_head_dim(recorded_launches, dtype, hd,
                                               entry):
@@ -162,14 +162,13 @@ def test_flash_dispatch_by_dtype_and_head_dim(recorded_launches, dtype, hd,
     fa.flash_attention_cuda(q, kv, kv, True)
     ((kernel, got, args),) = recorded_launches
     assert got == entry
-    sm90 = entry.endswith("sm90")
     assert kernel == entry[len("repro_"):]     # one counter per kernel
     assert len(args) == len(_build.SIGNATURES[entry])      # stream last
-    if sm90 or entry.endswith("tf32"):   # strides pass through; causal, scale
-        assert args[9:18] == (32 * 4 * hd, 4 * hd, hd,
-                              32 * 2 * hd, 2 * hd, hd,
-                              32 * 2 * hd, 2 * hd, hd)
-        assert args[18:20] == (1, hd ** -0.5)
+    # every route: strides pass through; causal, scale
+    assert args[9:18] == (32 * 4 * hd, 4 * hd, hd,
+                          32 * 2 * hd, 2 * hd, hd,
+                          32 * 2 * hd, 2 * hd, hd)
+    assert args[18:20] == (1, hd ** -0.5)
 
 
 def test_flash_sm90_takes_projection_views_in_place(recorded_launches):
@@ -213,7 +212,7 @@ def test_flash_sm90_unsupported_layout_raises(recorded_launches, what,
 def test_flash_counts_each_route_under_its_own_kernel(monkeypatch):
     """Each flash kernel has one counter, added to where it launches: the
     tensor-core launches (bf16 and float32) do not show under
-    ``flash_attention``."""
+    ``flash_attention``, which ``flash_attention_cuda`` no longer reaches."""
     monkeypatch.setattr(fa, "_require_card", lambda *ts: None)
     monkeypatch.setattr(fa, "_stream", lambda t: 0)
 
@@ -228,12 +227,13 @@ def test_flash_counts_each_route_under_its_own_kernel(monkeypatch):
         q = torch.zeros(1, 32, 4, hd, dtype=dtype)
         for _ in range(n):
             fa.flash_attention_cuda(q, q, q, True)
-    assert _build.LAUNCHES == {"rmsnorm": 0, "flash_attention": 1,
+    assert _build.LAUNCHES == {"rmsnorm": 0, "flash_attention": 0,
                                "fused_adam": 0, "ssd_scan": 0,
                                "flash_attention_sm90": 3,
                                "ssd_scan_sm90": 0,
                                "flash_attention_tf32": 2,
-                               "ssd_scan_sm90_f32": 0}
+                               "ssd_scan_sm90_f32": 0,
+                               "flash_attention_bf16_mma": 1}
 
 
 def test_flash_requires_card():
