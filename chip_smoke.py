@@ -14,7 +14,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    (bf16 and float32) for HMMA.16816.F32.BF16 (bf16 in, float32
    accumulators) and LDGSTS (cp.async), the head_dim-32 flash kernel's and
    the float32 SSD route's instruction mixes printed, and every mma.sync
-   flash and SSD kernel for no local-memory traffic (spills);
+   flash and SSD kernel and both dropout kernels (float32, bf16) for no
+   local-memory traffic (spills), the bf16 dropout kernel's instruction
+   mix printed;
 3. every kernel against its plain PyTorch version on the card at the main
    paths' shapes (rmsnorm [4096, 4096]; flash attention [1, 4096, 32, 128]
    causal on all four routes: float32 on the 3xTF32 tensor-core route MHA
@@ -39,7 +41,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    bf16 mma.sync route with the CUDA-core kernel too; each SSD
    route beside
    the CUDA-core kernel and ``ref.ssd_chunked`` in the same dtype,
-   composed of cuBLAS products);
+   composed of cuBLAS products); the content-addressed dropout kernel:
+   threefry2x32's known answers on the host and on the card, then bit for
+   bit against its plain version, output, gradient and mask, in float32
+   and bf16 at rates 0.1 and 0.5, at [1, 4096, 4096] (codeqwen's
+   activations), [2, 4096, 2560] (mamba2's at batch 2), an odd numel and
+   four samples, and past index 2**32 (the counter's high word), timed
+   beside ``F.dropout`` (Philox bits: timed only) and the plain version;
 4. a tiny dense and a tiny ssm cluster on the card against the same
    clusters on the CPU, for 3 steps each, within the reference's
    kernel-consistency bounds (the dense twin, float32 at head_dim 16,
@@ -56,16 +64,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    by the probes with a corrupted snapshot, scale-out, fail-slow with a
    layer migration, drain with a corrupted snapshot, a two-rank burst,
    DVFS and OOM-risk events): records, remap plans, integrity tiers and
-   layouts equal exactly, losses and state within the same bounds; and the
+   layouts equal exactly, losses and state within the same bounds; the
+   float32 tiny twins at dropout 0.1 (dense under both ``rng_mode``s, ssm,
+   and the dense recovery sequence), within the same bounds, with the
+   dropout-free twins' launches and exactly 192 / 192 / 96 / 1280 of the
+   dropout kernel; and the
    main-path kernels at the shapes recovery gives them (batch-2 items:
    rmsnorm on 8192 rows of 2560 and 5120, the SSD scan at
    [2, 4096, 80, 64]) and rmsnorm in float32 at phase 8's [4096, 2560]
    and [4096, 5120], against their plain versions;
 5. the dense main path: ``VirtualCluster.train_step`` on codeqwen1.5-7b at
    its published widths and dtype, depth cut to 2 layers, dp=2, pp=2, seq
-   4096, for 3 steps, with exact kernel launch counts (every flash launch
+   4096, for 2 steps, with exact kernel launch counts (every flash launch
    on the tensor-core route) and the host ring snapshot bitwise equal to
-   the device shards after every step;
+   the device shards after every step; then the same model at dropout 0.1
+   (``rng_mode="reshard"``) for 2 steps, every dropout forward and backward
+   on the dropout kernel (64 launches);
 6. the ssm main path: the same on mamba2-2.7b, depth cut to 4 layers,
    its cost model given the H100 data-sheet figures (peak bf16 rate, HBM
    rate and size; the other ``HardwareSpec`` fields keep the reference's
@@ -118,6 +132,8 @@ from repro_torch.kernels.rmsnorm import rmsnorm_cuda  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_scan_cuda, ssd_scan_cuda_cores, uses_sm90 as ssd_uses_sm90,
     uses_sm90_f32 as ssd_uses_sm90_f32)
+from repro_torch.kernels import threefry  # noqa: E402
+from repro_torch.kernels.threefry import threefry_dropout_cuda  # noqa: E402
 from repro_torch.models.registry import tiny_config  # noqa: E402
 from repro_torch.optim.adam import AdamConfig, adam_update_flat_np  # noqa: E402
 from repro_torch.weights import params_to_numpy  # noqa: E402
@@ -128,6 +144,18 @@ PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # TF32 on the tensor cores, dense: float32-accurate products there take
 # three TF32 products each (the float32 flash bound)
 PEAK_TF32_OPS_PER_S = 494.7e12
+# 32-bit integer operations on the CUDA cores: an SM issues one warp
+# instruction a clock in each of its 4 schedulers, 128 lanes, and integer
+# work fills them all, the ALU pipe's 64 lanes (logic, shifts, IADD3) and
+# the multiply-add pipe's 64 (IMAD, which also adds and shifts left): the
+# float32 rate's 128 lanes at one operation each, half of 67 TFLOP/s (132
+# SMs, ~1.98 GHz)
+PEAK_INT32_OPS_PER_S = 67e12 / 2
+# the dropout mask's integer work an element: one threefry2x32 (20 rounds
+# of add, rotate, xor and 12 key additions: 72) and the uniform's bits
+# (xor of the two words, shift, or: 3); the sample-id fold (one hash a
+# sample) is left out
+THREEFRY_INT_OPS_PER_ELEMENT = 75
 # the cost model of the ssm phases: the data sheet's figures; link_bw, mfu
 # and the frequencies keep the reference's model defaults
 H100_HW = HardwareSpec(peak_flops=PEAK_OPS_PER_S[torch.bfloat16],
@@ -178,6 +206,10 @@ SOURCES = {
                           "src/repro/kernels/ssd_scan.py:78"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:78"),
+    # no Pallas counterpart: the reference's dropout is XLA's fused
+    # threefry (repro.models.layers.dropout)
+    "threefry_dropout": ("src/repro_torch/kernels/csrc/threefry_dropout.cu",
+                         "src/repro/models/layers.py:50"),
 }
 DESIGNS = {
     "flash_attention_sm90": "bf16, head_dim 64/128: wgmma m64n128k16 for "
@@ -207,17 +239,32 @@ DESIGNS = {
     "ssd_scan": "the widths the tensor-core routes do not take (the tiny "
                 "configurations' chunk 8): one block per (b*h, p tile) "
                 "walking the chunks, float32 FMAs on the CUDA cores",
+    "threefry_dropout": "no Pallas counterpart (the reference's dropout is "
+                        "XLA's fused threefry): jax.random.bernoulli's masks "
+                        "bit for bit, one threefry2x32 an element (funnel-"
+                        "shift rotations) after one sample-id fold a "
+                        "thread, 8 elements a thread, scale by the jitted "
+                        "reference's float32 reciprocal; forward and "
+                        "backward alike",
 }
-# exact launches over 3 steps of each main path (4 items a step); every
-# flash launch of the bf16 models takes the tensor-core kernel
-DENSE_LAUNCHES = {"rmsnorm": 60, "flash_attention": 0, "fused_adam": 6,
-                  "ssd_scan": 0, "flash_attention_sm90": 24,
+# exact launches over the steps of each main path (4 items a step): 2 of
+# the dense path (cut from 3 when the dropout path joined, for time), 3
+# of the ssm path; every flash launch of the bf16 models takes the
+# tensor-core kernel
+DENSE_LAUNCHES = {"rmsnorm": 40, "flash_attention": 0, "fused_adam": 4,
+                  "ssd_scan": 0, "flash_attention_sm90": 16,
                   "ssd_scan_sm90": 0, "flash_attention_tf32": 0,
-                  "ssd_scan_sm90_f32": 0, "flash_attention_bf16_mma": 0}
+                  "ssd_scan_sm90_f32": 0, "flash_attention_bf16_mma": 0,
+                  "threefry_dropout": 0}
+# the same at dropout 0.1: per item and layer two dropouts (attention,
+# MLP), each launched forward and backward: 2 layers x 2 ops x 2 x 4 items
+# x 2 steps = 64
+DENSE_DROPOUT_LAUNCHES = {**DENSE_LAUNCHES, "threefry_dropout": 64}
 SSM_LAUNCHES = {"rmsnorm": 108, "flash_attention": 0, "fused_adam": 6,
                 "ssd_scan": 0, "flash_attention_sm90": 0,
                 "ssd_scan_sm90": 48, "flash_attention_tf32": 0,
-                "ssd_scan_sm90_f32": 0, "flash_attention_bf16_mma": 0}
+                "ssd_scan_sm90_f32": 0, "flash_attention_bf16_mma": 0,
+                "threefry_dropout": 0}
 # exact launches over the 2 steps of the float32 mamba2 path (2 layers, 4
 # items a step): per item one SSD scan a layer, two rmsnorms a layer (the
 # block's norm and the gated out_norm) and the final norm; one fused AdamW
@@ -225,13 +272,15 @@ SSM_LAUNCHES = {"rmsnorm": 108, "flash_attention": 0, "fused_adam": 6,
 SSM_F32_LAUNCHES = {"rmsnorm": 40, "flash_attention": 0, "fused_adam": 4,
                     "ssd_scan": 0, "flash_attention_sm90": 0,
                     "ssd_scan_sm90": 0, "flash_attention_tf32": 0,
-                    "ssd_scan_sm90_f32": 16, "flash_attention_bf16_mma": 0}
+                    "ssd_scan_sm90_f32": 16, "flash_attention_bf16_mma": 0,
+                    "threefry_dropout": 0}
 # exact launches over the 4 steps of phase 7: after a shrink each step is 2
 # items of batch 2, after the scale-out 4 items of batch 1
 RECOVERY_LAUNCHES = {"rmsnorm": 108, "flash_attention": 0, "fused_adam": 8,
                      "ssd_scan": 0, "flash_attention_sm90": 0,
                      "ssd_scan_sm90": 48, "flash_attention_tf32": 0,
-                     "ssd_scan_sm90_f32": 0, "flash_attention_bf16_mma": 0}
+                     "ssd_scan_sm90_f32": 0, "flash_attention_bf16_mma": 0,
+                     "threefry_dropout": 0}
 # phase 7: (name, recovery, layer_assignment, dp_ranks, per_rank_mbs after)
 # The fail-stop leaves stage 1 one rank wide, so the engine's graph plan
 # moves layer 2 to stage 0; the fail-slow of rank (0, 0) moves layers 1 and
@@ -256,6 +305,26 @@ TWIN_SEQUENCE = [
     ("burst_fail_stop", (5, 6)), ("train",),
     ("event", "dvfs_set", (2,)), ("event", "oom_risk", (3,)),
 ]
+DROPOUT_RATE = 0.1
+# exact dropout launches of the float32 twins at dropout 0.1, forward and
+# backward: the tiny dense (4 layers x 2 ops) and ssm (4 layers x 1 op)
+# twins take 4 items a step for 3 steps; the dense recovery twin (8 layers x
+# 2 ops) 8, 6, 8, 8, 6 and 4 items over the sequence's 6 steps
+DROPOUT_TWIN_LAUNCHES = {"dense": 2 * 4 * 2 * 4 * 3, "ssm": 2 * 4 * 1 * 4 * 3,
+                         "dense recovery": 2 * 8 * 2 * 40}
+# the dropout kernel's checks: (x shape, sample ids): codeqwen1.5-7b's
+# activations, mamba2-2.7b's at batch 2, an odd numel, and four samples
+DROPOUT_CASES = [((1, 4096, 4096), (12345,)), ((2, 4096, 2560), (8, 9)),
+                 ((3, 7, 33), (0, 1, 2 ** 31 - 1)),
+                 ((4, 1000, 37), (5, 100003, 7, 300007))]
+# threefry2x32 known answers: (key, counter, output)
+THREEFRY_KNOWN_ANSWERS = [
+    ((0x00000000, 0x00000000), (0x00000000, 0x00000000),
+     (0x6B200159, 0x99BA4EFE)),
+    ((0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFF, 0xFFFFFFFF),
+     (0x1CB996FC, 0xBB002BE7)),
+    ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3),
+     (0xC4923A9C, 0x483DF7A0))]
 # the tensor-core SSD scans' kernels: name -> (instances in the SASS,
 # HMMA and LDGSTS expected); the state pass comes from the header both
 # routes include (one copy each), the float32 route's chunk_out is built
@@ -475,6 +544,21 @@ def sass_check() -> None:
                 top = sorted(mix[f].items(), key=lambda kv: -kv[1])[:14]
                 log(f"  {name} instruction mix (static count): "
                     + ", ".join(f"{k} {v}" for k, v in top))
+    drop = sorted((f, c) for f, c in counts.items()
+                  if "threefry_dropout_kernel" in f)
+    check(len(drop) == 2, f"expected 2 threefry_dropout_kernel (float32, "
+                          f"bf16) in the SASS, found {len(drop)}")
+    for f, c in drop:
+        name = "threefry_dropout_kernel<" + (
+            "bf16" if "nv_bfloat16" in f else "float32") + ">"
+        log(f"  SASS {name}: LDL/STL {c['LDL/STL']}, "
+            f"{sum(mix[f].values())} instructions")
+        check(c["LDL/STL"] == 0, f"{name}: local-memory traffic: {c}")
+        if "nv_bfloat16" in f:
+            top = sorted(mix[f].items(), key=lambda kv: -kv[1])[:14]
+            log(f"  {name} instruction mix (static count, 8 elements a "
+                f"thread and one sample fold): "
+                + ", ".join(f"{k} {v}" for k, v in top))
 
 
 def kernel_rmsnorm(gen) -> dict:
@@ -954,6 +1038,133 @@ def kernel_ssd(gen) -> dict:
     return recs
 
 
+def kernel_dropout(gen) -> dict:
+    """The content-addressed dropout kernel against its plain version on the
+    card, bit for bit: the threefry2x32 known answers on the host and in
+    the plain version on the card; then at each of ``DROPOUT_CASES``, in
+    float32 and bf16, at rates 0.1 and 0.5, ``ops.dropout``'s output and
+    gradient (forward and backward each launch the kernel once) equal
+    ``ref.dropout_reference`` of x and of the cotangent as integers, and
+    their nonzeros equal the plain bernoulli mask on the nonzero inputs;
+    with several samples the masks differ between them.  The counter's high
+    word: a bf16 sample of 2**32 + 64 ones, its first and last 4096
+    elements against the plain bits of those indices.  Times at [1, 4096,
+    4096] in float32 and bf16, rate 0.1: the kernel, ``F.dropout`` (timed
+    only: its Philox bits are another function) and the plain version
+    interleaved."""
+    for key, count, want in THREEFRY_KNOWN_ANSWERS:
+        y0, y1 = threefry.threefry2x32(key, np.array([count[0]], np.uint32),
+                                       np.array([count[1]], np.uint32))
+        z0, z1 = ref.threefry2x32_reference(*(
+            torch.tensor([v], dtype=torch.int64, device="cuda")
+            for v in (*key, *count)))
+        check((int(y0[0]), int(y1[0])) == want == (int(z0), int(z1)),
+              f"threefry2x32{key, count}: host {(int(y0[0]), int(y1[0]))}, "
+              f"card {(int(z0), int(z1))}, want {want}")
+    log(f"threefry2x32: {len(THREEFRY_KNOWN_ANSWERS)} known answers on the "
+        f"host and in the plain version on the card")
+    # step 1, layer 0, op 0 of seed 0, as the cluster derives it
+    key = threefry.fold_in(threefry.fold_in(threefry.fold_in(
+        threefry.key_from_seed(0), 1), 0), 0)
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    shares, worst = {}, 0.0
+    for shape, ids in DROPOUT_CASES:
+        sids = torch.tensor(ids, dtype=torch.int32, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for rate in (0.1, 0.5):
+                p, r = threefry.dropout_scalars(rate, dtype)
+                xr = x.clone().requires_grad_(True)
+                before = _build.LAUNCHES["threefry_dropout"]
+                y = ops.dropout(xr, key, sids, rate)
+                y.backward(g)
+                check(_build.LAUNCHES["threefry_dropout"] == before + 2,
+                      "ops.dropout did not launch the kernel forward and "
+                      "backward")
+                keep = ref.bernoulli_keep(ref.sample_keys(key, sids),
+                                          shape[1:], p)
+                where = f"dropout {dtype} {list(shape)} rate {rate}"
+                for name, src, got in (("output", x, y.detach()),
+                                       ("gradient", g, xr.grad)):
+                    want = ref.dropout_reference(src, key, sids, p, r)
+                    check(torch.equal(got.view(ints[dtype]),
+                                      want.view(ints[dtype])),
+                          f"{where}: kernel {name} != plain version's "
+                          f"({int((got != want).sum())} elements)")
+                    # a kept zero stays zero (randn on the card draws a
+                    # few exact zeros at these sizes)
+                    check(torch.equal(got != 0, keep & (src != 0)),
+                          f"{where}: the kernel's {name} mask != plain mask")
+                    worst = max(worst, float((got.float() - want.float())
+                                             .abs().max()))
+                if len(ids) > 1:
+                    check(not torch.equal(keep[0], keep[1]),
+                          f"{where}: two samples drew one mask")
+                shares[(shape, dtype, rate)] = float(keep.float().mean())
+            log(f"dropout {dtype} {list(shape)} ids {list(ids)}: kernel == "
+                f"plain version bitwise, forward and backward; keep share "
+                f"rate 0.1 {shares[(shape, dtype, 0.1)]:.6f}, rate 0.5 "
+                f"{shares[(shape, dtype, 0.5)]:.6f}")
+            del x, g, xr, y, keep
+    # the counter's high word: indices >= 2**32 of one sample
+    n = 2 ** 32 + 64
+    sids = torch.tensor([77], dtype=torch.int32, device="cuda")
+    p, r = threefry.dropout_scalars(0.1, torch.bfloat16)
+    ones = torch.ones(1, n, dtype=torch.bfloat16, device="cuda")
+    y = threefry_dropout_cuda(ones, key, sids, p, r)
+    del ones
+    skeys = ref.sample_keys(key, sids)
+    one_r = torch.tensor(r, device="cuda").to(torch.bfloat16)
+    for lo in (0, n - 4096):
+        idx = torch.arange(lo, lo + 4096, dtype=torch.int64, device="cuda")
+        keep = ref.keep_from_bits(ref.threefry_bits(skeys, idx), p)
+        want = torch.where(keep, one_r, torch.zeros_like(one_r))
+        check(torch.equal(y[:, lo:lo + 4096], want),
+              f"dropout kernel != plain bits at indices [{lo}, {lo + 4096})")
+    del y
+    torch.cuda.empty_cache()
+    log(f"dropout bf16 [1, {n}]: indices [0, 4096) and [{n - 4096}, {n}) "
+        f"(counter high word 1 past 2**32) equal the plain version's")
+    # times at codeqwen's activations, bf16, rate 0.1
+    shape, ids = DROPOUT_CASES[0]
+    sids = torch.tensor(ids, dtype=torch.int32, device="cuda")
+    rec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        p, r = threefry.dropout_scalars(DROPOUT_RATE, dtype)
+        med = interleaved_medians(
+            {"kernel": lambda: threefry_dropout_cuda(x, key, sids, p, r),
+             "library": lambda: F.dropout(x, DROPOUT_RATE, training=True),
+             "plain": lambda: ref.dropout_reference(x, key, sids, p, r)},
+            5, 20)
+        numel = x.numel()
+        int_ops = THREEFRY_INT_OPS_PER_ELEMENT * numel
+        b, by = bound(2 * numel * x.element_size() + 4 * len(ids), int_ops,
+                      None, peak=PEAK_INT32_OPS_PER_S)
+        t_ops = int_ops / PEAK_INT32_OPS_PER_S * 1e3
+        log(f"dropout {dtype} {list(shape)} rate {DROPOUT_RATE}, medians of "
+            f"5 interleaved rounds of 20: kernel {med['kernel']:.5f} ms, "
+            f"F.dropout {med['library']:.5f} ms, plain {med['plain']:.3f} "
+            f"ms; bound {b:.5f} ms, by {by} (operations {t_ops:.5f} ms: "
+            f"{THREEFRY_INT_OPS_PER_ELEMENT} integer operations an "
+            f"element at {PEAK_INT32_OPS_PER_S / 1e12:.2f} T/s; bytes "
+            f"{2 * numel * x.element_size() / HBM_BYTES_PER_S * 1e3:.5f} "
+            f"ms)")
+        tag = "" if dtype == torch.bfloat16 else "float32_"
+        rec.update({f"{tag}ms": med["kernel"],
+                    f"{tag}plain_ms": med["plain"],
+                    f"{tag}library_ms": med["library"],
+                    f"{tag}bound_ms": b})
+        if dtype == torch.bfloat16:
+            rec.update(shape=f"bfloat16 {list(shape)}, rate {DROPOUT_RATE}",
+                       bound_by=by, max_abs_err=worst,
+                       keep_share=shares[(shape, dtype, DROPOUT_RATE)],
+                       library="F.dropout (Philox bits: timed only)")
+        del x
+    return rec
+
+
 def kernel_path_shapes(gen) -> dict:
     """The main-path kernels at the shapes the later paths give them.
     Phase 7 after a shrink (each item two sequences): rmsnorm in bf16 on
@@ -1005,26 +1216,31 @@ def kernel_path_shapes(gen) -> dict:
     return errs
 
 
-def phase_tiny_twin(family: str, twin: str = "float32") -> dict:
+def phase_tiny_twin(family: str, twin: str = "float32",
+                    dropout_rate: float = 0.0,
+                    rng_mode: str = "reshard") -> dict:
     """3 steps of a tiny cluster on the card and on the CPU: the float32
     tiny configuration (seq 16) within the reference's kernel-consistency
     bounds; the bf16 configuration of ``BF16_TWINS`` (``twin="bf16"``, seq
     128) or of ``BF16_MMA_TWINS`` (``twin="bf16 hd16"``, ``"bf16 hd32"``,
     dense, seq 128) within the bf16 twins' bound; or ``F32_SM90_SSM_TWIN``
-    (``twin="float32 sm90"``, seq 128) within the float32 bounds.  Returns
-    the card's launch counts."""
-    name = f"tiny {family} twin ({twin})"
+    (``twin="float32 sm90"``, seq 128) within the float32 bounds; at
+    ``dropout_rate`` under ``rng_mode``.  Returns the card's launch
+    counts."""
+    name = f"tiny {family} twin ({twin}" + (
+        f", dropout {dropout_rate} {rng_mode})" if dropout_rate else ")")
     bf16 = twin.startswith("bf16")
     cfg = tiny_config(family, **{"float32": {}, "bf16": BF16_TWINS[family],
                                  "float32 sm90": F32_SM90_SSM_TWIN,
-                                 **BF16_MMA_TWINS}[twin])
+                                 **BF16_MMA_TWINS}[twin],
+                      dropout_rate=dropout_rate)
     if twin in BF16_MMA_TWINS:
         check(f"hd{cfg.head_dim}" == twin.split()[1]
               and (cfg.num_heads, cfg.num_kv_heads) == (4, 2),
               f"{name}: head_dim {cfg.head_dim}, heads {cfg.num_heads}/"
               f"{cfg.num_kv_heads}")
     kw = dict(global_batch=8, num_micro=2,
-              seq_len=16 if twin == "float32" else 128)
+              seq_len=16 if twin == "float32" else 128, rng_mode=rng_mode)
     cpu = VirtualCluster(cfg, 2, 2, device="cpu", **kw)
     # the CPU cluster's own tensors: bf16 leaves stay bf16 on the card
     init = (cpu.stem, cpu.layer_params, cpu.head)
@@ -1094,14 +1310,17 @@ def _twin_op(cl: VirtualCluster, op: tuple):
                                        freq=1.1))
 
 
-def phase_tiny_recovery_twin(family: str) -> dict:
+def phase_tiny_recovery_twin(family: str, dropout_rate: float = 0.0,
+                             rng_mode: str = "reshard") -> dict:
     """The tiny float32 cluster (dp=4, pp=2, global batch 16) on the card
     and on the CPU through ``TWIN_SEQUENCE``: records, remap plans,
     integrity tiers and layouts equal exactly, losses and state within the
-    kernel-consistency bounds after every step.  Returns the card's launch
-    counts."""
-    cfg = tiny_config(family, num_layers=8 if family == "dense" else 4)
-    kw = dict(global_batch=16, num_micro=2, seq_len=16)
+    kernel-consistency bounds after every step; at ``dropout_rate`` under
+    ``rng_mode`` (0.1 is the reference's elastic test configuration).
+    Returns the card's launch counts."""
+    cfg = tiny_config(family, num_layers=8 if family == "dense" else 4,
+                      dropout_rate=dropout_rate)
+    kw = dict(global_batch=16, num_micro=2, seq_len=16, rng_mode=rng_mode)
     cpu = VirtualCluster(cfg, 4, 2, device="cpu", **kw)
     init = params_to_numpy(cpu.stem, cpu.layer_params, cpu.head)
     gpu = VirtualCluster(cfg, 4, 2, device="cuda", init_params=init, **kw)
@@ -1155,7 +1374,9 @@ def phase_tiny_recovery_twin(family: str) -> dict:
     check("rebuilt" in tiers["cuda"] and "rederived" in tiers["cuda"],
           f"tiny {family} recovery twin: tiers {tiers['cuda']}")
     counts = dict(_build.LAUNCHES)
-    log(f"tiny {family} recovery twin: {len(gpu.recoveries)} recoveries, "
+    log(f"tiny {family} recovery twin"
+        f"{f' (dropout {dropout_rate} {rng_mode})' if dropout_rate else ''}: "
+        f"{len(gpu.recoveries)} recoveries, "
         f"{len(logs['cuda'])} remap plans, tiers {tiers['cuda']}, layout "
         f"{gpu.layer_assignment}, dp_ranks "
         f"{[s.dp_ranks for s in gpu.stages]}: card == cpu; launches "
@@ -1322,6 +1543,8 @@ def main() -> None:
     recs["fused_adam"] = kernel_adam(gen, stage)
     recs.update(kernel_ssd(gen))
     torch.cuda.empty_cache()
+    recs["threefry_dropout"] = kernel_dropout(gen)
+    torch.cuda.empty_cache()
     tiny = phase_tiny_twin("dense")
     check(tiny["flash_attention_tf32"] > 0 and tiny["flash_attention"] == 0
           and tiny["flash_attention_sm90"] == 0,
@@ -1370,12 +1593,36 @@ def main() -> None:
           and twin_ssm["ssd_scan_sm90_f32"] == 0,
           f"tiny ssm recovery twin (float32, chunk 8) must take the "
           f"CUDA-core SSD route only: {twin_ssm}")
+    # the float32 twins at dropout 0.1: the same launches as without
+    # dropout, and exactly DROPOUT_TWIN_LAUNCHES of the dropout kernel
+    drop_twins = {}
+    for family, mode, base in (("dense", "reshard", tiny),
+                               ("dense", "naive", tiny),
+                               ("ssm", "reshard", tiny_ssm)):
+        counts = phase_tiny_twin(family, dropout_rate=DROPOUT_RATE,
+                                 rng_mode=mode)
+        want = {**base, "threefry_dropout": DROPOUT_TWIN_LAUNCHES[family]}
+        check(counts == want, f"tiny {family} twin (dropout {mode}): "
+                              f"launches {counts} != {want}")
+        drop_twins[f"{family}, {mode}"] = counts
+    twin_drop = phase_tiny_recovery_twin("dense", dropout_rate=DROPOUT_RATE)
+    want = {**twin_dense,
+            "threefry_dropout": DROPOUT_TWIN_LAUNCHES["dense recovery"]}
+    check(twin_drop == want, f"tiny dense recovery twin (dropout): launches "
+                             f"{twin_drop} != {want}")
     for name, errs in kernel_path_shapes(gen).items():
         recs[name].update(errs)
     torch.cuda.empty_cache()
     paths = {"codeqwen1.5-7b": phase_train(
-        dataclasses.replace(cfg, num_layers=2), DENSE_LAUNCHES)[0]}
+        dataclasses.replace(cfg, num_layers=2), DENSE_LAUNCHES, steps=2)[0]}
     gc.collect()                 # free the dense cluster's host and card state
+    torch.cuda.empty_cache()
+    # this slice's path: the same model at dropout 0.1, samples' streams
+    # addressed by their global ids, 2 steps
+    paths["codeqwen1.5-7b dropout 0.1"] = phase_train(
+        dataclasses.replace(cfg, num_layers=2, dropout_rate=DROPOUT_RATE),
+        DENSE_DROPOUT_LAUNCHES, steps=2, rng_mode="reshard")[0]
+    gc.collect()
     torch.cuda.empty_cache()
     paths["mamba2-2.7b"], ssm = phase_train(
         dataclasses.replace(mamba2_2p7b.config(), num_layers=4), SSM_LAUNCHES,
@@ -1384,8 +1631,8 @@ def main() -> None:
     del ssm
     gc.collect()           # free the bf16 mamba2 cluster's host and card state
     torch.cuda.empty_cache()
-    # this slice's path: the float32 mamba2 step on the float32 tensor-core
-    # SSD route, depth cut to 2 layers, 2 steps
+    # the float32 mamba2 step on the float32 tensor-core SSD route, depth
+    # cut to 2 layers, 2 steps
     paths["mamba2-2.7b float32"] = phase_train(
         dataclasses.replace(mamba2_2p7b.config(), num_layers=2,
                             dtype="float32"), SSM_F32_LAUNCHES, steps=2)[0]
@@ -1413,7 +1660,12 @@ def main() -> None:
             ("flash_attention_sm90", "tiny-dense twin (bf16)", tiny_bf16),
             *(("flash_attention_bf16_mma", f"tiny-dense twin ({twin})",
                counts) for twin, counts in tiny_mma.items()),
-            ("ssd_scan_sm90", "tiny-ssm twin (bf16)", tiny_ssm_bf16)):
+            ("ssd_scan_sm90", "tiny-ssm twin (bf16)", tiny_ssm_bf16),
+            *(("threefry_dropout", f"tiny-{k.split(',')[0]} twin (float32, "
+               f"dropout {DROPOUT_RATE},{k.split(',')[1]})", counts)
+              for k, counts in drop_twins.items()),
+            ("threefry_dropout", f"tiny-dense recovery twin (float32, "
+             f"dropout {DROPOUT_RATE})", twin_drop)):
         by_name[name]["launches_by_path"][path] = counts[name]
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -32,8 +32,14 @@ no card is visible.  Float32 matrix products run in full float32
 (``torch.backends.cuda.matmul.allow_tf32 = False``, set on construction), as
 the reference leaves them to XLA.
 
+Dropout draws the reference's masks bit for bit: the key chain is
+``fold_in(key(seed), step)``, then layer, op and sample id
+(``models/layers.py``), with each item's global sample ids under
+``rng_mode="reshard"`` and rank-addressed ids (``arange(B) + rank*100003``,
+the paper's "w/o RNG resharding") under ``"naive"``.
+
 Not yet ported, and raising ``NotImplementedError``: the seed path
-(``fast_path=False``) and dropout with a positive rate.
+(``fast_path=False``).
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.data.pipeline import GlobalBatchSampler, materialize_samples
+from repro_torch.kernels.threefry import fold_in, key_from_seed
 from repro_torch.models import registry as R
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import RngCtx
@@ -114,10 +121,6 @@ class VirtualCluster:
             raise NotImplementedError(
                 "fast_path=False (the seed per-item loops) is not ported; "
                 "the JAX package stays the seed-path oracle")
-        if cfg.dropout_rate > 0.0:
-            raise NotImplementedError(
-                "dropout_rate > 0 needs the content-addressed threefry RNG, "
-                "which is not ported yet")
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         self.cfg = cfg
@@ -131,6 +134,7 @@ class VirtualCluster:
         self.non_blocking_migration = non_blocking_migration
         self.fast_path = fast_path
         self.sampler = GlobalBatchSampler(global_batch, seed)
+        self.base_key = key_from_seed(seed)
 
         # ---- model state ----
         L = cfg.num_layers
@@ -277,12 +281,21 @@ class VirtualCluster:
         acc = torch.empty(n_flat, dtype=torch.float32, device=self.device)
         flat = torch.empty_like(acc)
         total_loss = 0.0
+        deterministic = self.cfg.dropout_rate <= 0.0
+        step_key = fold_in(self.base_key, step)
         for k, (r, ids) in enumerate(items):
             toks = torch.from_numpy(materialize_samples(
                 ids, self.seq, self.cfg.vocab_size)).to(self.device)
-            # dropout_rate == 0 (checked at construction): no random op
-            # reads the sample ids (reshard) or rank streams (naive) yet
-            ctx = RngCtx(step=step, deterministic=True)
+            sids = None
+            if not deterministic:
+                if self.rng_mode == "reshard":
+                    sids = ids.astype(np.int32)
+                else:   # naive: rank-addressed streams (the paper's "w/o")
+                    sids = np.arange(len(ids), dtype=np.int32) \
+                        + np.int32(r * 100003)
+                sids = torch.from_numpy(sids).to(self.device)
+            ctx = RngCtx(step_key=step_key, sample_ids=sids,
+                         deterministic=deterministic)
             loss = self._loss_fn(self.stem, self.layer_params, self.head,
                                  toks, toks, ctx)
             grads = torch.autograd.grad(loss, self._leaves)

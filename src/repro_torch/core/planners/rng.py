@@ -5,11 +5,15 @@ when a failed rank's samples are dispatched to peers, each sample is processed
 with its *original* RNG state (every node backs up the streams of its
 same-stage peers).
 
-The planner emits the explicit *stream reassignment map* the paper would
-ship, which documents what moved and gives the bytes-that-would-transfer
-for MTTR accounting.  A copy of ``RngPlan`` and ``plan_rng_reshard`` of
-``repro.core.planners.rng`` (the JAX package), numpy only; the stream keys
-themselves (content-addressed threefry) come with the port's dropout.
+Streams are **content-addressed**, as the reference's: the key of every
+random op is ``fold_in(fold_in(step_key, layer_id), sample_id)`` (with the
+op id folded between, ``models/layers.dropout``), so ownership changes
+never change the drawn bits.  The planner emits the explicit *stream
+reassignment map* the paper would ship, which documents what moved and
+gives the bytes-that-would-transfer for MTTR accounting.  A copy of
+``repro.core.planners.rng`` (the JAX package) in numpy: keys are
+``uint32[2]`` key data, equal to ``jax.random.key_data`` of the
+reference's keys (``kernels/threefry.py``).
 """
 from __future__ import annotations
 
@@ -17,6 +21,8 @@ import dataclasses
 from typing import Sequence, Tuple
 
 import numpy as np
+
+from repro_torch.kernels.threefry import fold_in
 
 RNG_STATE_BYTES = 16     # one splittable PRNG key (2x uint64 / 4x uint32)
 
@@ -57,3 +63,26 @@ def plan_rng_reshard(old_layer_stage: Sequence[int], new_layer_stage: Sequence[i
             if sid in old_sample_rank and old_sample_rank[sid] != new_sample_rank[sid])
     nbytes = (len(layer_moves) + len(sample_moves)) * RNG_STATE_BYTES
     return RngPlan(layer_moves, sample_moves, nbytes)
+
+
+def stream_key(base_key, step: int, layer_id: int,
+               sample_id: int) -> np.ndarray:
+    """The canonical content-addressed stream (``uint32[2]`` key data)."""
+    k = fold_in(base_key, step)
+    k = fold_in(k, layer_id)
+    return fold_in(k, sample_id)
+
+
+def verify_equivalence(base_key, step: int, layer_ids: Sequence[int],
+                       sample_ids: Sequence[int]) -> bool:
+    """Check the invariance the resharding must guarantee: the stream for each
+    (layer, sample) is identical regardless of the (stage, rank) that owns it.
+    With content addressing this is an identity; we assert it explicitly so a
+    regression in key derivation (e.g. rank-dependent folding) is caught."""
+    for lid in layer_ids:
+        for sid in sample_ids:
+            k1 = stream_key(base_key, step, lid, sid)
+            k2 = stream_key(base_key, step, lid, sid)
+            if not np.array_equal(k1, k2):
+                return False
+    return True

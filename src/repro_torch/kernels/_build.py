@@ -32,6 +32,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_U = ctypes.c_uint
 #: C entry points and their argument types (see csrc/*.cu)
 SIGNATURES = {
     "repro_rmsnorm": [_P, _P, _P, _LL, _I, _F, _I, _P],
@@ -50,6 +51,7 @@ SIGNATURES = {
                        *[_LL] * 12, _I, _P],
     "repro_ssd_scan_sm90": [*[_P] * 10, *[_I] * 7, *[_LL] * 12, _P],
     "repro_ssd_scan_sm90_f32": [*[_P] * 10, *[_I] * 7, *[_LL] * 12, _P],
+    "repro_threefry_dropout": [_P, _P, _P, _LL, _LL, _U, _U, _F, _F, _I, _P],
 }
 #: kernel launches by kernel name, added to only by :func:`launch`
 LAUNCHES: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
@@ -57,7 +59,8 @@ LAUNCHES: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
                             "flash_attention_sm90": 0, "ssd_scan_sm90": 0,
                             "flash_attention_tf32": 0,
                             "ssd_scan_sm90_f32": 0,
-                            "flash_attention_bf16_mma": 0}
+                            "flash_attention_bf16_mma": 0,
+                            "threefry_dropout": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 last_build_seconds: float = 0.0

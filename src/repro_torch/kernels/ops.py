@@ -9,6 +9,11 @@ Each differentiable kernel sits in a ``torch.autograd.Function`` that mirrors
 the reference's ``jax.custom_vjp`` (``repro/kernels/ops.py``): the forward
 is the kernel, the backward is autograd of the plain version at the saved
 inputs.  The TPU kernels have no backward kernel, so none is written here.
+Dropout is the exception: its backward is the same mask-and-scale function
+of the cotangent (the jitted reference's gradient), so forward and backward
+both launch ``csrc/threefry_dropout.cu``, which regenerates the mask from
+the keys instead of saving it.
+
 The SSD scan's backward differentiates the chunked plain version
 ``ref.ssd_chunked`` in float32 rather than the sequential oracle the
 reference differentiates: the two are the same function, but at seq 4096
@@ -25,7 +30,7 @@ tiers cover one rounding of the float32 result to bfloat16, whose relative
 spacing is at most 2**-7 (7.8e-3): the kernel and the plain version may land
 on neighbouring values.  ``ssd_scan_bf16`` is the same: the kernel and the
 oracle both compute in float32 from the same bf16 inputs and round once.
-Fused AdamW is held bitwise, not by its tier.
+Fused AdamW and dropout are held bitwise, not by a tier.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from .flash_attention import flash_attention_cuda
 from .fused_adam import fused_adam_cuda_
 from .rmsnorm import rmsnorm_cuda
 from .ssd_scan import ssd_scan_cuda
+from .threefry import dropout_scalars, threefry_dropout_cuda
 
 #: Declared per-kernel tolerance vs the ``ref.py`` plain versions.
 TOLERANCE_TIERS = {
@@ -128,6 +134,37 @@ class _SSDScan(torch.autograd.Function):
             grads = iter(torch.autograd.grad(y, wrt, g.float()))
         return tuple(next(grads).to(t.dtype) if need else None
                      for t, need in zip(saved, needs)) + (None,)
+
+
+def _mask_scale(x, key, sample_ids, p, r):
+    if on_card(x):
+        return threefry_dropout_cuda(x, key, sample_ids, p, r)
+    return ref.dropout_reference(x, key, sample_ids, p, r)
+
+
+class _Dropout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, key, sample_ids, p, r):
+        ctx.save_for_backward(sample_ids)
+        ctx.key, ctx.p, ctx.r = key, p, r
+        return _mask_scale(x, key, sample_ids, p, r)
+
+    @staticmethod
+    def backward(ctx, g):
+        (sample_ids,) = ctx.saved_tensors
+        return (_mask_scale(g, ctx.key, sample_ids, ctx.p, ctx.r),
+                None, None, None, None)
+
+
+def dropout(x, key, sample_ids, rate: float):
+    """Content-addressed dropout of x [B, ...]: sample b's mask is
+    ``bernoulli(fold_in(key, sample_ids[b]), 1 - rate, x.shape[1:])`` and a
+    kept element is scaled as the jitted reference scales it
+    (``threefry.dropout_scalars``).  ``key`` is the op's folded key
+    ``(k0, k1)`` (host integers); ``sample_ids`` [B] int32 on x's device.
+    The gradient is the same function of the cotangent."""
+    p, r = dropout_scalars(rate, x.dtype)
+    return _Dropout.apply(x, key, sample_ids, p, r)
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, initial_state=None):

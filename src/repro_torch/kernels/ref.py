@@ -6,7 +6,7 @@ passes differentiate them.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -166,3 +166,91 @@ def adam_flat_reference(grad: torch.Tensor, master: torch.Tensor,
     upd = (mu / c["b1t"]) / (root + c["eps"]) + c["wd"] * master
     master = master - c["lr"] * upd
     return {"master": master, "mu": mu, "nu": nu}
+
+
+# --------------------------------------------------------------------------
+# content-addressed threefry dropout (csrc/threefry_dropout.cu)
+# --------------------------------------------------------------------------
+# Threefry-2x32's constants, written out here so that the plain version
+# shares nothing with the program it checks (kernels/threefry.py)
+MASK = 0xFFFFFFFF
+ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+KS_PARITY = 0x1BD11BDA
+
+
+def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & MASK
+
+
+def threefry2x32_reference(k0, k1, x0, x1):
+    """``threefry.threefry2x32`` on int64 tensors holding uint32 values
+    (keys and counters broadcast): every sum masked to 32 bits, rotations
+    as two shifts.  Returns ``(y0, y1)``."""
+    k2 = k0 ^ k1 ^ KS_PARITY
+    ks = (k0, k1, k2)
+    x0 = (x0 + k0) & MASK
+    x1 = (x1 + k1) & MASK
+    for i in range(5):
+        for r in ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & MASK
+            x1 = _rotl32(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & MASK
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & MASK
+    return x0, x1
+
+
+def threefry_bits(keys: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The 32 random bits of flat indices ``idx`` (int64 [n]) of one draw
+    per key (``keys`` int64 [B, 2]): ``y0 ^ y1`` of the counter
+    ``(idx >> 32, idx & 0xFFFFFFFF)``, the partitionable layout.
+    Returns int64 [B, n]."""
+    y0, y1 = threefry2x32_reference(keys[:, 0:1], keys[:, 1:2],
+                                    (idx >> 32)[None], (idx & MASK)[None])
+    return y0 ^ y1
+
+
+def random_bits(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` (uint32, as int64) of each key of
+    ``keys`` int64 [B, 2] -> [B, *shape]."""
+    n = 1
+    for d in shape:
+        n *= int(d)
+    idx = torch.arange(n, dtype=torch.int64, device=keys.device)
+    return threefry_bits(keys, idx).reshape(keys.shape[0], *shape)
+
+
+def bernoulli_keep(keys: torch.Tensor, shape: Sequence[int],
+                   p: float) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` of each key -> bool
+    [B, *shape]."""
+    return keep_from_bits(random_bits(keys, shape), p)
+
+
+def keep_from_bits(bits: torch.Tensor, p: float) -> torch.Tensor:
+    """The bernoulli(p) decision of 32 random bits (int64 holding uint32):
+    the uniform in [0, 1) from the top 23 bits, compared with ``p`` (a
+    float32 value) in float32."""
+    u = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return u < torch.tensor(p, dtype=torch.float32, device=bits.device)
+
+
+def sample_keys(key, sample_ids: torch.Tensor) -> torch.Tensor:
+    """``fold_in(key, sid)`` of each sample id -> int64 [B, 2]."""
+    sid = sample_ids.to(torch.int64) & MASK
+    k0, k1 = (torch.tensor(int(k) & MASK, dtype=torch.int64,
+                           device=sid.device) for k in key)
+    y0, y1 = threefry2x32_reference(k0, k1, torch.zeros_like(sid), sid)
+    return torch.stack([y0, y1], dim=1)
+
+
+def dropout_reference(x: torch.Tensor, key, sample_ids: torch.Tensor,
+                      p: float, r: float) -> torch.Tensor:
+    """``keep ? round(fl32(x) * r) : 0`` for x [B, ...], with ``keep`` the
+    bernoulli(p) mask of ``fold_in(key, sample_ids[b])`` over x.shape[1:]
+    (``threefry.dropout_scalars`` gives p and r).  Forward and backward of
+    dropout alike: the reference's jitted gradient is the same function of
+    the cotangent."""
+    keep = bernoulli_keep(sample_keys(key, sample_ids), x.shape[1:], p)
+    scale = torch.tensor(r, dtype=torch.float32, device=x.device)
+    return torch.where(keep, (x.float() * scale).to(x.dtype),
+                       torch.zeros((), dtype=x.dtype, device=x.device))

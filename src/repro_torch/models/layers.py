@@ -7,19 +7,28 @@ package's.  ``init_*`` take an explicit ``torch.Generator``; its numbers
 differ from ``jax.random``'s, so twin runs carry weights across
 (``repro_torch.weights``).
 
+**Content-addressed RNG**, as the reference's: every random op derives its
+key as ``fold_in(fold_in(fold_in(step_key, layer_id), op_id), sample_id)``
+(``jax.random``'s threefry2x32, computed bit for bit by
+``kernels/threefry.py``), so a dropout mask depends only on (step, layer,
+op, sample), never on which rank or micro-batch slot computes it.  The
+folds down to the op run on the host; the sample-id fold and the draws run
+in the dropout kernel (``kernels/ops.dropout``).
+
 Not yet ported (they raise): KV-cache decode and the cached/offset attention
-branch (serving slice), MLA, the chunked attention path, and dropout with a
-positive rate (content-addressed threefry RNG).
+branch (serving slice), MLA and the chunked attention path.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.threefry import fold_in
 from .config import ModelConfig
 
 
@@ -28,20 +37,27 @@ from .config import ModelConfig
 # --------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class RngCtx:
-    """Identity-addressed randomness: ``step`` and the global ``sample_ids``
-    of the batch address every random op, never the rank computing it."""
-    step: Optional[int] = None
-    sample_ids: Optional[torch.Tensor] = None     # [batch] global sample ids
+    """Identity-addressed randomness for computation consistency:
+    ``step_key`` (``fold_in(base_key, step)``, then folded by layer) and the
+    global ``sample_ids`` of the batch address every random op, never the
+    rank computing it."""
+    step_key: Optional[np.ndarray] = None        # uint32[2] key data
+    sample_ids: Optional[torch.Tensor] = None    # [batch] int32, x's device
     deterministic: bool = True
+
+    def layer(self, layer_id: int) -> "RngCtx":
+        if self.deterministic or self.step_key is None:
+            return self
+        return dataclasses.replace(
+            self, step_key=fold_in(self.step_key, layer_id))
 
 
 def dropout(x: torch.Tensor, rate: float, ctx: RngCtx,
             op_id: int = 0) -> torch.Tensor:
-    if ctx.deterministic or rate <= 0.0 or ctx.step is None:
+    """Per-sample content-addressed dropout. x: [batch, seq, ...]."""
+    if ctx.deterministic or rate <= 0.0 or ctx.step_key is None:
         return x
-    raise NotImplementedError(
-        "dropout with rate > 0 needs the content-addressed threefry RNG, "
-        "which is not ported yet")
+    return ops.dropout(x, fold_in(ctx.step_key, op_id), ctx.sample_ids, rate)
 
 
 # --------------------------------------------------------------------------

@@ -56,17 +56,18 @@ def apply_block(params, cfg: ModelConfig, blk: str, x, positions,
                 rng_ctx: L.RngCtx, layer_id: int):
     """Returns (x, aux_loss)."""
     _check_ported(cfg, blk)
+    ctx = rng_ctx.layer(layer_id)
     h = L.rmsnorm(params["ln1"], x, cfg.norm_eps)
     if _is_attn(blk):
         a, _ = L.apply_attention(params["attn"], cfg, h, positions)
     else:
         a, _ = M.apply_mamba(params["mamba"], cfg, h)
-    x = x + L.dropout(a, cfg.dropout_rate, rng_ctx, op_id=0)
+    x = x + L.dropout(a, cfg.dropout_rate, ctx, op_id=0)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if _has_mlp(cfg, blk):
         h = L.rmsnorm(params["ln2"], x, cfg.norm_eps)
         m = L.apply_mlp(params["mlp"], cfg, h)
-        x = x + L.dropout(m, cfg.dropout_rate, rng_ctx, op_id=1)
+        x = x + L.dropout(m, cfg.dropout_rate, ctx, op_id=1)
     return x, aux
 
 

@@ -81,17 +81,22 @@ def test_ring_snapshot_equals_device_shards_bitwise():
 
 
 def test_unported_options_and_recovery_raise():
-    """The seed path and dropout still raise; the control plane's ``hw`` /
-    ``mem_cap`` are accepted and recovery runs (it no longer raises),
-    returning the reference's record schema."""
+    """The seed path still raises; dropout trains (it no longer raises),
+    in both rng modes; the control plane's ``hw`` / ``mem_cap`` are
+    accepted and recovery runs (it no longer raises), returning the
+    reference's record schema."""
     from repro.core.cluster import _recovery_record
     from repro_torch.core.cost_model import HardwareSpec
     cfg = tiny_config("dense", num_layers=2)
     with pytest.raises(NotImplementedError, match="fast_path"):
         VirtualCluster(cfg, 2, 2, fast_path=False, device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        VirtualCluster(tiny_config("dense", dropout_rate=0.1), 2, 2,
-                       device="cpu", **KW)
+    for mode in ("reshard", "naive"):
+        drop = VirtualCluster(tiny_config("dense", num_layers=2,
+                                          dropout_rate=0.1), 2, 2,
+                              rng_mode=mode, device="cpu", **KW)
+        losses = drop.run(2)
+        assert len(losses) == 2 and all(np.isfinite(losses))
+        np.testing.assert_array_equal(drop.base_key, [0, 0])
     hw = HardwareSpec(peak_flops=989e12, hbm_bw=3.35e12, hbm_bytes=80e9)
     cl = VirtualCluster(cfg, 2, 2, device="cpu", hw=hw, mem_cap=40e9, **KW)
     assert cl.hw is hw and cl.engine.mem_cap == 40e9

@@ -59,7 +59,7 @@ def _fake_card(monkeypatch):
 
     for name in ("rmsnorm_reference", "gqa_attention_reference",
                  "mha_reference", "adam_flat_reference", "ssd_reference",
-                 "ssd_chunked"):
+                 "ssd_chunked", "dropout_reference"):
         monkeypatch.setattr(ref, name, plain)
     monkeypatch.setattr(ops, "rmsnorm_cuda",
                         lambda x, s, eps: calls.append("rmsnorm") or x)
@@ -69,6 +69,8 @@ def _fake_card(monkeypatch):
                         lambda *a: calls.append("adam"))
     monkeypatch.setattr(ops, "ssd_scan_cuda",
                         lambda x, *a: calls.append("ssd") or x)
+    monkeypatch.setattr(ops, "threefry_dropout_cuda",
+                        lambda x, *a: calls.append("dropout") or x)
     return calls
 
 
@@ -81,7 +83,8 @@ def test_wrappers_never_give_a_cuda_tensor_to_the_plain_version(monkeypatch):
     ops.fused_adam_(v, v.clone(), v.clone(), v.clone(), step=1)
     ops.ssd_scan(x, torch.ones(2, 8, 4), -torch.ones(4), x[:, :, :1],
                  x[:, :, :1], chunk=4)
-    assert calls == ["rmsnorm", "flash", "adam", "ssd"]
+    ops.dropout(x, (1, 2), torch.zeros(2, dtype=torch.int32), 0.1)
+    assert calls == ["rmsnorm", "flash", "adam", "ssd", "dropout"]
 
 
 def test_other_devices_raise():

@@ -157,10 +157,20 @@ def test_params_carry_bf16_leaves_exactly():
 
 
 def test_unported_paths_raise():
+    """MoE still raises; dropout at a positive rate runs (the reference's
+    masks, ``test_torch_threefry.py``): kept elements are scaled by
+    fl32(1 / fl32(0.9)), the rest are zero."""
     with pytest.raises(NotImplementedError):
         R.tiny_config("moe")
     cfg = R.tiny_config("dense", dropout_rate=0.1)
-    x = torch.zeros(1, 2, cfg.d_model)
+    x = torch.ones(2, 8, cfg.d_model)
+    from repro_torch.kernels.threefry import fold_in, key_from_seed
     from repro_torch.models.layers import dropout
-    with pytest.raises(NotImplementedError):
-        dropout(x, 0.1, RngCtx(step=0, deterministic=False))
+    ctx = RngCtx(step_key=fold_in(key_from_seed(0), 0),
+                 sample_ids=torch.tensor([0, 1], dtype=torch.int32),
+                 deterministic=False)
+    y = dropout(x, 0.1, ctx)
+    scale = float(np.float32(1) / np.float32(0.9))
+    assert set(y.unique().tolist()) == {0.0, scale}
+    assert 0.8 < float((y != 0).float().mean()) < 1.0
+    assert not torch.equal(y[0], y[1])          # per-sample streams
