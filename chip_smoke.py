@@ -14,9 +14,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    (bf16 and float32) for HMMA.16816.F32.BF16 (bf16 in, float32
    accumulators) and LDGSTS (cp.async), the head_dim-32 flash kernel's and
    the float32 SSD route's instruction mixes printed, and every mma.sync
-   flash and SSD kernel and both dropout kernels (float32, bf16) for no
-   local-memory traffic (spills), the bf16 dropout kernel's instruction
-   mix printed;
+   flash and SSD kernel and the four dropout kernels (float32, bf16; 32-
+   and 64-bit counters) for no local-memory traffic (spills), the dropout
+   kernels also for 16-byte loads and stores (LDG.E.128, STG.E.128), the
+   32-bit-counter ones' static ALU-pipe and multiply-add-pipe instructions
+   an element and instruction mixes printed;
 3. every kernel against its plain PyTorch version on the card at the main
    paths' shapes (rmsnorm [4096, 4096]; flash attention [1, 4096, 32, 128]
    causal on all four routes: float32 on the 3xTF32 tensor-core route MHA
@@ -45,9 +47,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    threefry2x32's known answers on the host and on the card, then bit for
    bit against its plain version, output, gradient and mask, in float32
    and bf16 at rates 0.1 and 0.5, at [1, 4096, 4096] (codeqwen's
-   activations), [2, 4096, 2560] (mamba2's at batch 2), an odd numel and
-   four samples, and past index 2**32 (the counter's high word), timed
-   beside ``F.dropout`` (Philox bits: timed only) and the plain version;
+   activations), [2, 4096, 2560] (mamba2's at batch 2), an odd numel,
+   four samples, three samples of n % 8 = 7 elements, and mamba2's shape
+   3 elements off a 16-byte boundary, and past index 2**32 (the counter's
+   high word), timed beside ``F.dropout`` (Philox bits: timed only) and
+   the plain version;
 4. a tiny dense and a tiny ssm cluster on the card against the same
    clusters on the CPU, for 3 steps each, within the reference's
    kernel-consistency bounds (the dense twin, float32 at head_dim 16,
@@ -79,7 +83,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    on the tensor-core route) and the host ring snapshot bitwise equal to
    the device shards after every step; then the same model at dropout 0.1
    (``rng_mode="reshard"``) for 2 steps, every dropout forward and backward
-   on the dropout kernel (64 launches);
+   on the dropout kernel (64 launches), its second step under
+   ``torch.profiler``: device time by kind (each hand-written kernel,
+   cuBLAS products, other ATen kernels, memcpy by direction) and the
+   device-busy share from the step's start to the snapshot's;
 6. the ssm main path: the same on mamba2-2.7b, depth cut to 4 layers,
    its cost model given the H100 data-sheet figures (peak bf16 rate, HBM
    rate and size; the other ``HardwareSpec`` fields keep the reference's
@@ -156,6 +163,21 @@ PEAK_INT32_OPS_PER_S = 67e12 / 2
 # (xor of the two words, shift, or: 3); the sample-id fold (one hash a
 # sample) is left out
 THREEFRY_INT_OPS_PER_ELEMENT = 75
+# SASS opcodes the ALU pipe issues (logic, shifts, three-input adds,
+# compares, selects, permutes); every IMAD form goes to the multiply-add
+# pipe
+ALU_PIPE_OPS = ("LOP3", "SHF", "IADD3", "ISETP", "FSEL", "SEL", "PRMT",
+                "LEA", "IMNMX", "FSETP", "PLOP3")
+# 16-byte vectors a thread of the dropout kernel (kVectors)
+DROPOUT_VECTORS = 4
+# the kernels of csrc/, by the names the profiler gives them
+HAND_WRITTEN_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_tf32_kernel",
+                        "flash_fwd_bf16_mma_kernel", "flash_fwd_kernel",
+                        "rmsnorm_kernel", "fused_adam_kernel",
+                        "ssd_f32_chunk_state_kernel",
+                        "ssd_f32_chunk_out_kernel", "ssd_chunk_state_kernel",
+                        "ssd_chunk_out_kernel", "ssd_state_pass_kernel",
+                        "ssd_scan_kernel", "threefry_dropout_kernel")
 # the cost model of the ssm phases: the data sheet's figures; link_bw, mfu
 # and the frequencies keep the reference's model defaults
 H100_HW = HardwareSpec(peak_flops=PEAK_OPS_PER_S[torch.bfloat16],
@@ -242,10 +264,12 @@ DESIGNS = {
     "threefry_dropout": "no Pallas counterpart (the reference's dropout is "
                         "XLA's fused threefry): jax.random.bernoulli's masks "
                         "bit for bit, one threefry2x32 an element (funnel-"
-                        "shift rotations) after one sample-id fold a "
-                        "thread, 8 elements a thread, scale by the jitted "
-                        "reference's float32 reciprocal; forward and "
-                        "backward alike",
+                        "shift rotations, adds on the multiply-add pipe, a "
+                        "32-bit counter where n <= 2**32) after one "
+                        "sample-id fold a block, 4 vectors of 16 bytes a "
+                        "thread with a scalar head and tail, one integer "
+                        "keep test, scale by the jitted reference's "
+                        "float32 reciprocal; forward and backward alike",
 }
 # exact launches over the steps of each main path (4 items a step): 2 of
 # the dense path (cut from 3 when the dropout path joined, for time), 3
@@ -312,11 +336,18 @@ DROPOUT_RATE = 0.1
 # 2 ops) 8, 6, 8, 8, 6 and 4 items over the sequence's 6 steps
 DROPOUT_TWIN_LAUNCHES = {"dense": 2 * 4 * 2 * 4 * 3, "ssm": 2 * 4 * 1 * 4 * 3,
                          "dense recovery": 2 * 8 * 2 * 40}
-# the dropout kernel's checks: (x shape, sample ids): codeqwen1.5-7b's
-# activations, mamba2-2.7b's at batch 2, an odd numel, and four samples
-DROPOUT_CASES = [((1, 4096, 4096), (12345,)), ((2, 4096, 2560), (8, 9)),
-                 ((3, 7, 33), (0, 1, 2 ** 31 - 1)),
-                 ((4, 1000, 37), (5, 100003, 7, 300007))]
+# the dropout kernel's checks: (x shape, sample ids, the element offset of
+# x and the cotangent into their buffers): codeqwen1.5-7b's activations,
+# mamba2-2.7b's at batch 2, an odd numel, four samples, a sample of 93,391
+# elements (n % 8 = 7: each sample's own head and tail, 12 bf16 tiles a
+# sample) and mamba2's shape 3 elements off a 16-byte boundary (the scalar
+# head in every sample)
+DROPOUT_CASES = [((1, 4096, 4096), (12345,), 0),
+                 ((2, 4096, 2560), (8, 9), 0),
+                 ((3, 7, 33), (0, 1, 2 ** 31 - 1), 0),
+                 ((4, 1000, 37), (5, 100003, 7, 300007), 0),
+                 ((3, 1531, 61), (3, 2 ** 20, 65537), 0),
+                 ((2, 4096, 2560), (8, 9), 3)]
 # threefry2x32 known answers: (key, counter, output)
 THREEFRY_KNOWN_ANSWERS = [
     ((0x00000000, 0x00000000), (0x00000000, 0x00000000),
@@ -430,7 +461,9 @@ def phase_device() -> str:
     return card
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Builds the kernels, prints ptxas's registers and spills, checks the
+    SASS; returns ``sass_check``'s dropout pipe counts."""
     t0 = time.perf_counter()
     _build.library()
     log(f"build: {time.perf_counter() - t0:.1f} s "
@@ -439,33 +472,26 @@ def phase_build() -> None:
         if any(w in line for w in ("Compiling entry", "Used", "spill",
                                    "arning")):
             log("  " + line.strip())
-    sass_check()
+    return sass_check()
 
 
-def sass_check() -> None:
-    """The tensor-core kernels' machine code (``cuobjdump -sass`` of the
-    built library).  bf16 flash must hold HGMMA for both products
-    (shared-memory A for Q.K^T, register A for P.V) and UTMALDG (TMA
-    loads).  float32 flash (one kernel per head_dim) must hold
-    HMMA.1688.F32.TF32 (mma.sync, TF32 in, float32 accumulators) and
-    LDGSTS, and its head_dim-128 kernel's instruction mix is printed.  bf16
-    flash at head_dim 16/32 (one kernel per head_dim), and the SSD scan's
-    chunk_state and chunk_out on both tensor-core routes (bf16 and
-    float32), must hold HMMA.16816.F32.BF16 (mma.sync, bf16 in, float32
-    accumulators) and LDGSTS (cp.async); the head_dim-32 flash kernel's and
-    the float32 SSD route's instruction mixes are printed.  None of the
-    mma.sync flash and SSD kernels may touch local memory (LDL/STL:
-    spills)."""
+def sass_of(lib: Path) -> str:
+    """``cuobjdump -sass`` of a built library."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.build())],
+    return subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
+
+
+def parse_sass(sass: str) -> tuple:
+    """Per kernel (mangled name): counts of the instructions the checks
+    look for, and the static count of every opcode (with its modifiers)."""
     counts, mix, fn = {}, {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             counts[fn] = {"HGMMA": 0, "HGMMA register A": 0, "UTMALDG": 0,
                           "HMMA bf16": 0, "HMMA tf32": 0, "LDGSTS": 0,
-                          "LDL/STL": 0}
+                          "LDL/STL": 0, "LDG.128": 0, "STG.128": 0}
             mix[fn] = {}
             continue
         if fn is None:
@@ -485,6 +511,38 @@ def sass_check() -> None:
             re.search(r"\bHMMA\.1688\.F32\.TF32\b", line))
         counts[fn]["LDGSTS"] += bool(re.search(r"\bLDGSTS\b", line))
         counts[fn]["LDL/STL"] += bool(re.search(r"\b(LDL|STL)\b", line))
+        counts[fn]["LDG.128"] += bool(re.search(r"\bLDG\.E\.128\b", line))
+        counts[fn]["STG.128"] += bool(re.search(r"\bSTG\.E\.128\b", line))
+    return counts, mix
+
+
+def pipe_counts(mix: dict) -> tuple:
+    """Static instructions of one kernel on the ALU pipe (ALU_PIPE_OPS)
+    and on the multiply-add pipe (every IMAD form)."""
+    alu = sum(v for op, v in mix.items() if op.split(".")[0] in ALU_PIPE_OPS)
+    mad = sum(v for op, v in mix.items() if op.split(".")[0] == "IMAD")
+    return alu, mad
+
+
+def sass_check() -> dict:
+    """The tensor-core kernels' machine code (``cuobjdump -sass`` of the
+    built library).  bf16 flash must hold HGMMA for both products
+    (shared-memory A for Q.K^T, register A for P.V) and UTMALDG (TMA
+    loads).  float32 flash (one kernel per head_dim) must hold
+    HMMA.1688.F32.TF32 (mma.sync, TF32 in, float32 accumulators) and
+    LDGSTS, and its head_dim-128 kernel's instruction mix is printed.  bf16
+    flash at head_dim 16/32 (one kernel per head_dim), and the SSD scan's
+    chunk_state and chunk_out on both tensor-core routes (bf16 and
+    float32), must hold HMMA.16816.F32.BF16 (mma.sync, bf16 in, float32
+    accumulators) and LDGSTS (cp.async); the head_dim-32 flash kernel's and
+    the float32 SSD route's instruction mixes are printed.  None of the
+    mma.sync flash and SSD kernels may touch local memory (LDL/STL:
+    spills).  The dropout kernel (float32 and bf16, each with a 32- and a
+    64-bit counter) must not either, and must load and store 16-byte
+    vectors (LDG.E.128, STG.E.128); the 32-bit-counter kernels' static
+    ALU-pipe and multiply-add-pipe instructions an element are printed and
+    returned, by dtype name, beside their instruction mixes."""
+    counts, mix = parse_sass(sass_of(_build.build()))
     sm90 = {f: c for f, c in counts.items() if "flash_fwd_sm90_kernel" in f}
     check(len(sm90) == 2, f"expected 2 tensor-core flash kernels in the "
                           f"SASS, found {len(sm90)}")
@@ -546,19 +604,32 @@ def sass_check() -> None:
                     + ", ".join(f"{k} {v}" for k, v in top))
     drop = sorted((f, c) for f, c in counts.items()
                   if "threefry_dropout_kernel" in f)
-    check(len(drop) == 2, f"expected 2 threefry_dropout_kernel (float32, "
-                          f"bf16) in the SASS, found {len(drop)}")
+    check(len(drop) == 4, f"expected 4 threefry_dropout_kernel (float32, "
+                          f"bf16; 32- and 64-bit counters) in the SASS, "
+                          f"found {len(drop)}")
+    pipes = {}
     for f, c in drop:
-        name = "threefry_dropout_kernel<" + (
-            "bf16" if "nv_bfloat16" in f else "float32") + ">"
-        log(f"  SASS {name}: LDL/STL {c['LDL/STL']}, "
+        bf16 = "nv_bfloat16" in f
+        narrow = re.search(r"Lb1E", f) is not None
+        name = (f"threefry_dropout_kernel<{'bf16' if bf16 else 'float32'}, "
+                f"{'32' if narrow else '64'}-bit counter>")
+        log(f"  SASS {name}: LDL/STL {c['LDL/STL']}, LDG.E.128 "
+            f"{c['LDG.128']}, STG.E.128 {c['STG.128']}, "
             f"{sum(mix[f].values())} instructions")
         check(c["LDL/STL"] == 0, f"{name}: local-memory traffic: {c}")
-        if "nv_bfloat16" in f:
-            top = sorted(mix[f].items(), key=lambda kv: -kv[1])[:14]
-            log(f"  {name} instruction mix (static count, 8 elements a "
-                f"thread and one sample fold): "
-                + ", ".join(f"{k} {v}" for k, v in top))
+        check(c["LDG.128"] > 0 and c["STG.128"] > 0,
+              f"{name}: 128-bit global loads and stores expected: {c}")
+        if narrow:
+            per = DROPOUT_VECTORS * (8 if bf16 else 4)
+            alu, mad = pipe_counts(mix[f])
+            pipes["bf16" if bf16 else "float32"] = (alu / per, mad / per)
+            top = sorted(mix[f].items(), key=lambda kv: -kv[1])[:16]
+            log(f"  {name}: static ALU pipe {alu} ({alu / per:.2f} an "
+                f"element), multiply-add pipe {mad} ({mad / per:.2f} an "
+                f"element) over {per} elements a thread, with the sample "
+                f"fold and the scalar head and tail (one rolled hash "
+                f"each); mix: " + ", ".join(f"{k} {v}" for k, v in top))
+    return pipes
 
 
 def kernel_rmsnorm(gen) -> dict:
@@ -1046,7 +1117,9 @@ def kernel_dropout(gen) -> dict:
     gradient (forward and backward each launch the kernel once) equal
     ``ref.dropout_reference`` of x and of the cotangent as integers, and
     their nonzeros equal the plain bernoulli mask on the nonzero inputs;
-    with several samples the masks differ between them.  The counter's high
+    with several samples the masks differ between them; x and the
+    cotangent start at the case's element offset, and the output keeps x's
+    address modulo 16 bytes.  The counter's high
     word: a bf16 sample of 2**32 + 64 ones, its first and last 4096
     elements against the plain bits of those indices.  Times at [1, 4096,
     4096] in float32 and bf16, rate 0.1: the kernel, ``F.dropout`` (timed
@@ -1068,17 +1141,28 @@ def kernel_dropout(gen) -> dict:
         threefry.key_from_seed(0), 1), 0), 0)
     ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
     shares, worst = {}, 0.0
-    for shape, ids in DROPOUT_CASES:
+
+    def drawn(shape, dtype, offset):
+        if not offset:
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        t = torch.randn(math.prod(shape) + offset, generator=gen,
+                        device="cuda").to(dtype)[offset:].view(shape)
+        check(t.data_ptr() % 16 != 0, "the misaligned case is aligned")
+        return t
+
+    for shape, ids, offset in DROPOUT_CASES:
         sids = torch.tensor(ids, dtype=torch.int32, device="cuda")
         for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            x = drawn(shape, dtype, offset)
+            g = drawn(shape, dtype, offset)
             for rate in (0.1, 0.5):
                 p, r = threefry.dropout_scalars(rate, dtype)
-                xr = x.clone().requires_grad_(True)
+                xr = x.detach().requires_grad_(True)
                 before = _build.LAUNCHES["threefry_dropout"]
                 y = ops.dropout(xr, key, sids, rate)
                 y.backward(g)
+                check(y.data_ptr() % 16 == x.data_ptr() % 16,
+                      "the kernel's output is off x's address phase")
                 check(_build.LAUNCHES["threefry_dropout"] == before + 2,
                       "ops.dropout did not launch the kernel forward and "
                       "backward")
@@ -1102,7 +1186,8 @@ def kernel_dropout(gen) -> dict:
                     check(not torch.equal(keep[0], keep[1]),
                           f"{where}: two samples drew one mask")
                 shares[(shape, dtype, rate)] = float(keep.float().mean())
-            log(f"dropout {dtype} {list(shape)} ids {list(ids)}: kernel == "
+            log(f"dropout {dtype} {list(shape)} ids {list(ids)}"
+                f"{f' {offset} elements off' if offset else ''}: kernel == "
                 f"plain version bitwise, forward and backward; keep share "
                 f"rate 0.1 {shares[(shape, dtype, 0.1)]:.6f}, rate 0.5 "
                 f"{shares[(shape, dtype, 0.5)]:.6f}")
@@ -1127,7 +1212,7 @@ def kernel_dropout(gen) -> dict:
     log(f"dropout bf16 [1, {n}]: indices [0, 4096) and [{n - 4096}, {n}) "
         f"(counter high word 1 past 2**32) equal the plain version's")
     # times at codeqwen's activations, bf16, rate 0.1
-    shape, ids = DROPOUT_CASES[0]
+    shape, ids, _ = DROPOUT_CASES[0]
     sids = torch.tensor(ids, dtype=torch.int32, device="cuda")
     rec = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1395,10 +1480,86 @@ def snapshot_matches_device(cl: VirtualCluster) -> bool:
     return True
 
 
-def phase_train(cfg, want: dict, steps: int = 3, **cluster_kw) -> tuple:
+def covered_share(spans: list, lo: float, hi: float) -> float:
+    """Share of [lo, hi] that the union of ``spans`` (start, end) covers."""
+    covered, end = 0.0, lo
+    for a, b in sorted(spans):
+        a, b = max(a, end), min(b, hi)
+        if b > a:
+            covered += b - a
+            end = b
+    return covered / (hi - lo)
+
+
+def device_split(trace: dict) -> dict:
+    """Device time of one profiled step (``torch.profiler``'s Chrome trace,
+    microseconds) by kind: each hand-written kernel by name, cuBLAS
+    products, the other ATen kernels (the plain backwards, elementwise
+    work), memcpy by direction, memset; and the shares of the window from
+    the step's start to the snapshot's start that the device was busy with
+    anything (kernels, copies, memsets) and with kernels."""
+    events = trace["traceEvents"]
+    marks = {e["name"]: e["ts"] for e in events
+             if e.get("cat") == "user_annotation"
+             and e.get("name") in ("chip_smoke.step", "chip_smoke.snapshot")}
+    split, busy, kernels = {}, [], []
+    for e in events:
+        cat, name = e.get("cat"), e.get("name", "")
+        if cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        if cat == "gpu_memcpy":
+            kind = "memcpy " + next((d for d in ("DtoH", "HtoD", "DtoD")
+                                     if d in name), "other")
+        elif cat == "gpu_memset":
+            kind = "memset"
+        else:
+            mine = re.search("|".join(HAND_WRITTEN_KERNELS), name)
+            kind = (mine.group(0) if mine else "cuBLAS products"
+                    if re.search(r"gemm|nvjet|xmma|cutlass|cublas", name,
+                                 re.I) else "other ATen kernels")
+            kernels.append((e["ts"], e["ts"] + e["dur"]))
+        split[kind] = split.get(kind, 0.0) + e["dur"]
+        busy.append((e["ts"], e["ts"] + e["dur"]))
+    lo, hi = marks["chip_smoke.step"], marks["chip_smoke.snapshot"]
+    return {"us": split, "window_us": hi - lo,
+            "busy_share": covered_share(busy, lo, hi),
+            "kernel_share": covered_share(kernels, lo, hi)}
+
+
+def profiled_step(cl: VirtualCluster) -> tuple:
+    """One ``train_step`` under ``torch.profiler`` (CPU and CUDA), the
+    snapshot's start marked; returns the loss and ``device_split``."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    pools = cl.snapshots
+    inner = pools[0].snapshot_step
+
+    def marked(*a, **k):
+        with record_function("chip_smoke.snapshot"):
+            return inner(*a, **k)
+    pools[0].snapshot_step = marked
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("chip_smoke.step"):
+                loss = cl.train_step()
+            torch.cuda.synchronize()
+    finally:
+        del pools[0].snapshot_step
+    path = _build.BUILD_ROOT.parent / "chip_smoke_step_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    path.unlink()
+    return loss, device_split(trace)
+
+
+def phase_train(cfg, want: dict, steps: int = 3,
+                profile_step: int | None = None, **cluster_kw) -> tuple:
     """``steps`` steps of ``VirtualCluster.train_step`` at dp=2, pp=2, global
-    batch 4 in 2 micro-batches, seq 4096, random weights from seed 1.
-    Returns the launch counts and the cluster."""
+    batch 4 in 2 micro-batches, seq 4096, random weights from seed 1; step
+    ``profile_step`` under ``torch.profiler`` (``profiled_step``; its step
+    time carries the profiler's cost).  Returns the launch counts and the
+    cluster."""
     t0 = time.perf_counter()
     cl = VirtualCluster(cfg, 2, 2, global_batch=4, num_micro=2, seq_len=4096,
                         device="cuda", **cluster_kw)
@@ -1413,10 +1574,23 @@ def phase_train(cfg, want: dict, steps: int = 3, **cluster_kw) -> tuple:
     for step in range(steps):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        loss = cl.train_step()
+        if step == profile_step:
+            loss, split = profiled_step(cl)
+        else:
+            loss = cl.train_step()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         snap = cl.snapshot_seconds[-1]
+        if step == profile_step:
+            us = split["us"]
+            log(f"step {step} device time by kind (torch.profiler, ms): "
+                + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in
+                            sorted(us.items(), key=lambda kv: -kv[1]))
+                + f"; total {sum(us.values()) / 1e3:.3f}; of the "
+                f"{split['window_us'] / 1e3:.3f} ms from the step's start "
+                f"to the snapshot's, the device was busy "
+                f"{split['busy_share']:.4f}, with kernels "
+                f"{split['kernel_share']:.4f}")
         log(f"step {step}: loss {loss:.6f} ({loss!r}) step_s {dt:.3f} "
             f"snapshot_s {snap:.3f} (share {snap / dt:.3f}) "
             f"peak_mem_GB {torch.cuda.max_memory_allocated() / 1e9:.2f}")
@@ -1532,7 +1706,7 @@ def phase_recovery(cl: VirtualCluster) -> tuple:
 
 def main() -> None:
     card = phase_device()
-    phase_build()
+    pipes = phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     recs = {"rmsnorm": kernel_rmsnorm(gen), **kernel_flash(gen)}
@@ -1544,6 +1718,11 @@ def main() -> None:
     recs.update(kernel_ssd(gen))
     torch.cuda.empty_cache()
     recs["threefry_dropout"] = kernel_dropout(gen)
+    for dt, (alu, mad) in pipes.items():
+        tag = "" if dt == "bf16" else "float32_"
+        recs["threefry_dropout"].update({
+            f"{tag}sass_alu_pipe_per_element": alu,
+            f"{tag}sass_multiply_add_pipe_per_element": mad})
     torch.cuda.empty_cache()
     tiny = phase_tiny_twin("dense")
     check(tiny["flash_attention_tf32"] > 0 and tiny["flash_attention"] == 0
@@ -1621,7 +1800,8 @@ def main() -> None:
     # addressed by their global ids, 2 steps
     paths["codeqwen1.5-7b dropout 0.1"] = phase_train(
         dataclasses.replace(cfg, num_layers=2, dropout_rate=DROPOUT_RATE),
-        DENSE_DROPOUT_LAUNCHES, steps=2, rng_mode="reshard")[0]
+        DENSE_DROPOUT_LAUNCHES, steps=2, profile_step=1,
+        rng_mode="reshard")[0]
     gc.collect()
     torch.cuda.empty_cache()
     paths["mamba2-2.7b"], ssm = phase_train(

@@ -101,6 +101,20 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def same_phase_empty(x: torch.Tensor) -> torch.Tensor:
+    """An uninitialised tensor like contiguous ``x`` whose address is
+    ``x``'s modulo 16 bytes, so that the kernel's 16-byte vectors line up
+    in both (a view into a slightly longer buffer where ``x`` is off a
+    16-byte boundary)."""
+    phase = x.data_ptr() % 16
+    if phase == 0:
+        return torch.empty_like(x)
+    elt = x.element_size()
+    buf = torch.empty(x.numel() + 16 // elt, dtype=x.dtype, device=x.device)
+    shift = (phase - buf.data_ptr() % 16) % 16 // elt
+    return buf[shift:shift + x.numel()].view(x.shape)
+
+
 def threefry_dropout_cuda(x: torch.Tensor, key, sample_ids: torch.Tensor,
                           p: float, r: float) -> torch.Tensor:
     """``keep ? round(fl32(x) * r) : 0`` with ``keep`` the reference's
@@ -119,7 +133,7 @@ def threefry_dropout_cuda(x: torch.Tensor, key, sample_ids: torch.Tensor,
                          f"{tuple(sample_ids.shape)}")
     x2 = x.contiguous()
     sids = sample_ids.contiguous()
-    out = torch.empty_like(x2)
+    out = same_phase_empty(x2)
     n = x2.numel() // B if B else 0
     _build.launch("threefry_dropout", "repro_threefry_dropout",
                   x2.data_ptr(), out.data_ptr(), sids.data_ptr(), B, n,
