@@ -18,7 +18,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    and 64-bit counters) for no local-memory traffic (spills), the dropout
    kernels also for 16-byte loads and stores (LDG.E.128, STG.E.128), the
    32-bit-counter ones' static ALU-pipe and multiply-add-pipe instructions
-   an element and instruction mixes printed;
+   an element and instruction mixes printed, and the CUDA-core SSD scan's
+   22 builds (``ssd_scan.cu``) for no local-memory traffic and cp.async
+   (LDGSTS) in their float32 builds;
 3. every kernel against its plain PyTorch version on the card at the main
    paths' shapes (rmsnorm [4096, 4096]; flash attention [1, 4096, 32, 128]
    causal on all four routes: float32 on the 3xTF32 tensor-core route MHA
@@ -37,7 +39,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    inputs, with order-1 and small step sizes, and with 8 groups, the fp32
    cases also against the oracle in float64, with silu and signed
    inputs; the float32 route also at four narrower widths, p 16/32/48 and
-   n 32/48/80/112, so that each of its builds is checked), with kernel,
+   n 32/48/80/112, so that each of its builds is checked); the CUDA-core
+   SSD kernel at the widths it serves, through ``ssd_scan_cuda``: narrow
+   [1, 4096, 320, 16] with n 16, chunk 8 (mamba2's d_inner at the tiny
+   configurations' SSD widths) and wide [1, 4096, 40, 128] with n 128,
+   chunk 256, float32 silu, against the oracle and the float64 witness,
+   the narrow widths also on signed inputs (witness only) and in bf16,
+   each yardstick timed beside its bound and the composed
+   ``ref.ssd_chunked`` with its kernels' device time a call), with kernel,
    plain-version and library-call times (rmsnorm and ``F.rms_norm``, each
    flash route and ``F.scaled_dot_product_attention`` interleaved, the
    bf16 mma.sync route with the CUDA-core kernel too; each SSD
@@ -177,7 +186,10 @@ HAND_WRITTEN_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_tf32_kernel",
                         "ssd_f32_chunk_state_kernel",
                         "ssd_f32_chunk_out_kernel", "ssd_chunk_state_kernel",
                         "ssd_chunk_out_kernel", "ssd_state_pass_kernel",
-                        "ssd_scan_kernel", "threefry_dropout_kernel")
+                        "ssd_cc_chunk_state_kernel", "ssd_cc_chunk_cb_kernel",
+                        "ssd_cc_chunk_out_small_kernel",
+                        "ssd_cc_chunk_out_large_kernel",
+                        "threefry_dropout_kernel")
 # the cost model of the ssm phases: the data sheet's figures; link_bw, mfu
 # and the frequencies keep the reference's model defaults
 H100_HW = HardwareSpec(peak_flops=PEAK_OPS_PER_S[torch.bfloat16],
@@ -259,8 +271,13 @@ DESIGNS = {
                          "pieces a side, split at fragment load from float32 "
                          "tiles (cp.async), short accumulator chains",
     "ssd_scan": "the widths the tensor-core routes do not take (the tiny "
-                "configurations' chunk 8): one block per (b*h, p tile) "
-                "walking the chunks, float32 FMAs on the CUDA cores",
+                "configurations' chunk 8, p > 64, p or n not a multiple of "
+                "16): chunk-parallel on the CUDA cores, rows in groups of "
+                "max(1, 64 / chunk) chunks (chunk_state, state pass over "
+                "groups, chunk_out); chunk <= 64: a block walks its group's "
+                "chunks with the state in registers, heads of one B/C group "
+                "sharing a block; chunk > 64: C B^T once per (group, chunk) "
+                "for all heads, then 64-row tiles, x by cp.async",
     "threefry_dropout": "no Pallas counterpart (the reference's dropout is "
                         "XLA's fused threefry): jax.random.bernoulli's masks "
                         "bit for bit, one threefry2x32 an element (funnel-"
@@ -358,13 +375,24 @@ THREEFRY_KNOWN_ANSWERS = [
      (0xC4923A9C, 0x483DF7A0))]
 # the tensor-core SSD scans' kernels: name -> (instances in the SASS,
 # HMMA and LDGSTS expected); the state pass comes from the header both
-# routes include (one copy each), the float32 route's chunk_out is built
-# for each p / 16 (1-4)
+# routes include (one copy each, and one in the CUDA-core ssd_scan.cu), the
+# float32 route's chunk_out is built for each p / 16 (1-4)
 SSD_SM90_KERNELS = {"ssd_chunk_state_kernel": (1, True),
-                    "ssd_state_pass_kernel": (2, False),
+                    "ssd_state_pass_kernel": (3, False),
                     "ssd_chunk_out_kernel": (1, True),
                     "ssd_f32_chunk_state_kernel": (1, True),
                     "ssd_f32_chunk_out_kernel": (4, True)}
+# the CUDA-core SSD scan's kernels (ssd_scan.cu): name -> instances in the
+# SASS (float32 and bf16 each; chunk_state for two thread tiles,
+# chunk_out_small for TN 2/4/8/16, chunk_out_large for TQ 1/2/4)
+SSD_CC_KERNELS = {"ssd_cc_chunk_state_kernel": 4, "ssd_cc_chunk_cb_kernel": 2,
+                  "ssd_cc_chunk_out_small_kernel": 8,
+                  "ssd_cc_chunk_out_large_kernel": 6}
+# the CUDA-core SSD route's yardsticks in phase 3 (float32, g 1, s 4096):
+# name -> (h, p, n, chunk); main is mamba2-2.7b's widths, narrow its d_inner
+# at the tiny configurations' SSD widths, wide head_dim 128 at its d_inner
+SSD_CC_YARDSTICKS = {"main": (80, 64, 128, 256), "narrow": (320, 16, 16, 8),
+                     "wide": (40, 128, 128, 256)}
 
 
 def log(msg: str) -> None:
@@ -602,6 +630,18 @@ def sass_check() -> dict:
                 top = sorted(mix[f].items(), key=lambda kv: -kv[1])[:14]
                 log(f"  {name} instruction mix (static count): "
                     + ", ".join(f"{k} {v}" for k, v in top))
+    for kernel, instances in SSD_CC_KERNELS.items():
+        found = sorted((f, c) for f, c in counts.items() if kernel in f)
+        check(len(found) == instances, f"expected {instances} {kernel} in "
+                                       f"the SASS, found {len(found)}")
+        f32 = [c for f, c in found if "nv_bfloat16" not in f]
+        log(f"  SASS {kernel} ({len(found)} builds): LDL/STL "
+            f"{sum(c['LDL/STL'] for _, c in found)}, LDGSTS in the float32 "
+            f"builds {[c['LDGSTS'] for c in f32]}")
+        check(all(c["LDL/STL"] == 0 for _, c in found),
+              f"{kernel}: local-memory traffic")
+        check(all(c["LDGSTS"] > 0 for c in f32),
+              f"{kernel}: float32 builds without cp.async (LDGSTS)")
     drop = sorted((f, c) for f, c in counts.items()
                   if "threefry_dropout_kernel" in f)
     check(len(drop) == 4, f"expected 4 threefry_dropout_kernel (float32, "
@@ -1094,19 +1134,138 @@ def kernel_ssd(gen) -> dict:
                                by_kernel_per="launch the profiler recorded",
                                **common)
             if f32:
-                # the CUDA-core kernel's record: its own dtype's inputs
+                # the CUDA-core kernel's record: its own dtype's inputs,
+                # its bound at the CUDA cores' float32 peak
                 recs[route]["cuda_core_bound_ms"] = b_cores
-                recs["ssd_scan"].update(shape=shape,
-                                        max_abs_err=errs["CUDA cores"],
-                                        ms=med["CUDA cores"],
-                                        cuda_core_bound_ms=b_cores, **common)
+                cc_phases = {k: v for k, v in device_us_by_kernel(
+                    lambda: ssd_scan_cuda_cores(x, dt, A, B, C, chunk),
+                    10).items() if k.startswith("ssd_")}
+                log("  CUDA-core kernel by kernel, us a call: " + ", ".join(
+                    f"{k} {v:.2f}" for k, v in cc_phases.items()))
+                recs["ssd_scan"].update(
+                    shape=shape, max_abs_err=errs["CUDA cores"],
+                    ms=med["CUDA cores"], plain_ms=plain, bound_ms=b_cores,
+                    bound_by="operations", library_ms=None,
+                    composed_ms=composed, phases_us=cc_phases,
+                    by_kernel_per="launch the profiler recorded")
+                recs["ssd_scan"].setdefault("yardsticks", {})["main"] = dict(
+                    shape=shape, ms=med["CUDA cores"], bound_ms=b_cores,
+                    bound_by="operations", composed_ms=composed,
+                    phases_us=cc_phases, max_abs_err=errs["CUDA cores"],
+                    share_of_bound=b_cores / med["CUDA cores"])
             else:
                 recs["ssd_scan"].update(bf16_inputs_shape=shape,
                                         bf16_inputs_ms=med["CUDA cores"],
                                         bf16_inputs_max_abs_err=errs[
                                             "CUDA cores"])
         del xBC, x, B, C, Bh, Ch, y, want, outs
+    recs["ssd_scan"].setdefault("yardsticks", {}).update(
+        kernel_ssd_cuda_cores(gen))
     return recs
+
+
+def kernel_ssd_cuda_cores(gen) -> dict:
+    """The CUDA-core SSD kernel at the widths it serves, through
+    ``ssd_scan_cuda`` (which must route them to it), x, B and C as views of
+    one activation, dt of order 1 with A = -linspace(1, 16, h): the narrow
+    and wide yardsticks of ``SSD_CC_YARDSTICKS`` on silu inputs, each held
+    to the ``ssd_scan`` tier against the float32 oracle and to the float64
+    witness, and timed (interleaved with the composed ``ref.ssd_chunked``)
+    beside its bound at the CUDA cores' float32 peak, with its kernels'
+    device time a call; the narrow widths on signed inputs, held to the
+    witness alone with their elementwise misses printed; and in bf16 at the
+    narrow widths, held to ``ssd_scan_bf16``.  Returns the timed
+    yardsticks' records and the other cases' errors."""
+    b, g, s = 1, 1, 4096
+    out = {}
+    for name, dtype, act in (("narrow", torch.float32, "silu"),
+                             ("wide", torch.float32, "silu"),
+                             ("narrow", torch.float32, "signed"),
+                             ("narrow", torch.bfloat16, "silu")):
+        h, p, n, chunk = SSD_CC_YARDSTICKS[name]
+        f32 = dtype == torch.float32
+        tier_name = "ssd_scan" if f32 else "ssd_scan_bf16"
+        tier = ops.TOLERANCE_TIERS[tier_name]
+        xBC = torch.randn(b, s, h * p + 2 * g * n, generator=gen,
+                          device="cuda")
+        xBC = (F.silu(xBC) if act == "silu" else xBC).to(dtype)
+        x = xBC[..., :h * p].reshape(b, s, h, p)
+        B = xBC[..., h * p:h * p + g * n].reshape(b, s, g, n)
+        C = xBC[..., h * p + g * n:].reshape(b, s, g, n)
+        dt = F.softplus(torch.randn(b, s, h, generator=gen, device="cuda"))
+        A = -torch.linspace(1.0, 16.0, h, device="cuda")
+        check(not ssd_uses_sm90(dtype, p, n, chunk)
+              and not ssd_uses_sm90_f32(dtype, p, n, chunk),
+              f"ssd_scan_cuda routes {name} {dtype} to a tensor-core kernel")
+        before = _build.LAUNCHES["ssd_scan"]
+        y = ssd_scan_cuda(x, dt, A, B, C, chunk)
+        check(_build.LAUNCHES["ssd_scan"] == before + 1,
+              f"ssd_scan_cuda did not launch ssd_scan at {name} {dtype}")
+        Bh, Ch = (t.repeat_interleave(h // g, dim=2) for t in (B, C))
+        want = ref.ssd_reference(x, dt, A, Bh, Ch)[0]
+        label = (f"ssd_scan CUDA cores {name} {str(dtype)[6:]} {act} x "
+                 f"[{b}, {s}, {h}, {p}] n {n} chunk {chunk}")
+        ok, err = within(y, want, tier)
+        misses, worst = tier_misses(y, want, tier)
+        log(f"{label}: max_abs_err {err:.3e} (max |y| "
+            f"{float(want.float().abs().max()):.2f}) tier {tier_name} "
+            f"ok={ok}, {misses} elements outside, worst / tolerance "
+            f"{worst:.3f}")
+        if act == "silu":
+            check(ok, f"{label} outside {tier_name}")
+        rec = dict(max_abs_err=err, tier_misses=misses)
+        if f32:
+            d = [t.double() for t in (x, dt, A, Bh, Ch)]
+            y64 = ref.ssd_reference(*d)[0]
+            terms = ref.ssd_reference(d[0].abs(), d[1], d[2], d[3].abs(),
+                                      d[4].abs())[0]
+            for who, got in (("kernel", y), ("oracle", want)):
+                e = (got.double() - y64).abs()
+                miss = int((e > tier["atol"] + tier["rtol"] * y64.abs())
+                           .sum())
+                worst = float((e / terms.clamp_min(1e-300)).max())
+                log(f"  {who} vs float64: max_abs_err {float(e.max()):.3e}, "
+                    f"{miss} elements outside {tier_name}, max err / "
+                    f"sum|terms| {worst:.3e}")
+                if who == "kernel":
+                    check(bool((e <= tier["atol"] + tier["rtol"] * terms)
+                               .all()),
+                          f"{label}: beyond {tier_name} of sum|terms| "
+                          f"against float64")
+                    rec["float64_misses"] = miss
+            del d, y64, terms, e
+        if f32 and act == "silu":
+            nc = s // chunk
+            nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * 4 \
+                + 4 * (b * s * h + h)
+            flops = b * h * nc * (chunk * (chunk + 1) * (n + p)
+                                  + 4 * chunk * p * n)
+            bnd, by = bound(nbytes, flops, dtype)
+            med = interleaved_medians(
+                {"kernel": lambda: ssd_scan_cuda(x, dt, A, B, C, chunk),
+                 "composed": lambda: ref.ssd_chunked(x, dt, A, B, C, chunk)},
+                3, 10)
+            phases = {k: v for k, v in device_us_by_kernel(
+                lambda: ssd_scan_cuda(x, dt, A, B, C, chunk), 10).items()
+                if k.startswith("ssd_")}
+            log(f"  ms: kernel {med['kernel']:.4f}, composed ref.ssd_chunked "
+                f"{med['composed']:.4f} (medians of 3 interleaved rounds of "
+                f"10); bound_ms {bnd:.4f} ({by}: {nbytes / 1e6:.1f} MB, "
+                f"{flops / 1e9:.3f} GFLOP at "
+                f"{PEAK_OPS_PER_S[dtype] / 1e12:g} TFLOP/s), "
+                f"{bnd / med['kernel']:.1%} of it")
+            log("  by kernel, us a call: " + ", ".join(
+                f"{k} {v:.2f}" for k, v in phases.items()))
+            rec.update(shape=f"float32 x [{b}, {s}, {h}, {p}], B, C "
+                             f"[{b}, {s}, {g}, {n}], chunk {chunk}",
+                       ms=med["kernel"], bound_ms=bnd, bound_by=by,
+                       composed_ms=med["composed"], phases_us=phases,
+                       share_of_bound=bnd / med["kernel"])
+            out[name] = rec
+        else:
+            out[f"{name} {str(dtype)[6:]} {act}"] = rec
+        del xBC, x, B, C, Bh, Ch, y, want
+    return out
 
 
 def kernel_dropout(gen) -> dict:

@@ -47,8 +47,7 @@ SIGNATURES = {
                                        *[_LL] * 9, _I, _F, _P],
     "repro_fused_adam": [_P, _P, _P, _P, _LL, _F, _F, _F, _F, _F, _F, _F, _F,
                          _F, _P],
-    "repro_ssd_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       *[_LL] * 12, _I, _P],
+    "repro_ssd_scan": [*[_P] * 9, *[_I] * 7, *[_LL] * 12, _I, _P],
     "repro_ssd_scan_sm90": [*[_P] * 10, *[_I] * 7, *[_LL] * 12, _P],
     "repro_ssd_scan_sm90_f32": [*[_P] * 10, *[_I] * 7, *[_LL] * 12, _P],
     "repro_threefry_dropout": [_P, _P, _P, _LL, _LL, _U, _U, _F, _F, _I, _P],

@@ -23,6 +23,9 @@ stride, a base and every other stride a multiple of 16 bytes; anything else
 raises.  Every other width (the tiny configurations' chunk 8, p 16, n 16)
 takes the CUDA-core kernel ``ssd_scan.cu``, counted as ``ssd_scan``, which
 reads any strides (a tensor whose last stride is not 1 is made contiguous).
+It is chunk-parallel too: rows go in groups of :func:`group_chunks` chunks
+(at most 64 rows, or one chunk above 64), with one float32 [p, n] state a
+group in its workspace (:func:`cuda_core_workspace`).
 
 A failed launch raises; no route takes over from another.
 """
@@ -37,6 +40,7 @@ MAX_CHUNK = 256
 MAX_STATE = 128
 SM90_MAX_P = 64
 SM90_TILE = 64     # rows of the tensor-core kernel's chunk tiles
+CUDA_CORE_GROUP_ROWS = 64   # the most rows of a group of small chunks
 
 
 def _tensor_core_widths(p: int, n: int, chunk: int) -> bool:
@@ -149,10 +153,37 @@ def _ssd_scan_tensor_cores(kernel: str, x, dt, A, B, C,
     return y
 
 
+def group_chunks(chunk: int) -> int:
+    """Chunks in a group of the CUDA-core kernel: as many as 64 rows hold,
+    one for a chunk above 64 rows."""
+    return max(1, CUDA_CORE_GROUP_ROWS // chunk)
+
+
+def cuda_core_workspace(b: int, s: int, h: int, g: int, p: int, n: int,
+                        chunk: int) -> tuple:
+    """Float32 elements of the CUDA-core kernel's three workspaces: the
+    groups' states (b*h*groups states of p*n rounded up to 4 elements, for
+    the state pass's 16-byte vectors), exp of each group's decay
+    (b*h*groups), groups = ceil((s / chunk) / group_chunks(chunk)), and,
+    for a chunk above 64 rows, C.B^T of every pair of 64-row tiles j <= i
+    of each chunk, once per B/C group (b*g*chunks*pairs*64*64; none at
+    chunk <= 64)."""
+    k = group_chunks(chunk)
+    chunks = s // chunk
+    groups = -(-chunks // k)
+    pn4 = -(-(p * n) // 4) * 4
+    tiles = -(-chunk // CUDA_CORE_GROUP_ROWS)
+    pairs = tiles * (tiles + 1) // 2 if chunk > CUDA_CORE_GROUP_ROWS else 0
+    return (b * h * groups * pn4, b * h * groups,
+            b * g * chunks * pairs * CUDA_CORE_GROUP_ROWS ** 2)
+
+
 def ssd_scan_cuda_cores(x, dt, A, B, C, chunk: int) -> torch.Tensor:
     """The CUDA-core kernel (``csrc/ssd_scan.cu``), for any dtype and width
     it takes, bf16 at mamba2's widths too (``chip_smoke.py`` runs both
-    routes on the same inputs): one launch of ``ssd_scan``."""
+    routes on the same inputs): three kernels on the caller's stream (four
+    above chunk 64), counted as one launch of ``ssd_scan``.  Allocates
+    their workspace (:func:`cuda_core_workspace`)."""
     _check(x, dt, A, B, C, chunk)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -160,9 +191,12 @@ def ssd_scan_cuda_cores(x, dt, A, B, C, chunk: int) -> torch.Tensor:
     dt = dt.float()
     A = A.float().contiguous()
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
+    ws, seg, cb = (torch.empty(k, dtype=torch.float32, device=x.device)
+                   for k in cuda_core_workspace(b, s, h, g, p, n, chunk))
     _build.launch("ssd_scan", "repro_ssd_scan",
                   x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                  C.data_ptr(), y.data_ptr(), b, s, h, g, p, n, chunk,
+                  C.data_ptr(), y.data_ptr(), ws.data_ptr(), seg.data_ptr(),
+                  cb.data_ptr(), b, s, h, g, p, n, chunk,
                   *x.stride()[:3], *dt.stride(), *B.stride()[:3],
                   *C.stride()[:3], DTYPE_CODES[x.dtype], _stream(x))
     return y

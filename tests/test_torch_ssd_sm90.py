@@ -230,6 +230,14 @@ def _views(s, h, p, g, n, dtype, pad=0, offset=0):
     (torch.bfloat16, 24, 128, 256, "repro_ssd_scan"),
     (torch.bfloat16, 64, 24, 256, "repro_ssd_scan"),
     (torch.bfloat16, 64, 128, 32, "repro_ssd_scan"),
+    (torch.float32, 8, 6, 8, "repro_ssd_scan"),
+    (torch.float32, 24, 20, 24, "repro_ssd_scan"),
+    (torch.float32, 40, 24, 96, "repro_ssd_scan"),
+    (torch.float32, 128, 32, 32, "repro_ssd_scan"),
+    (torch.float32, 17, 5, 7, "repro_ssd_scan"),
+    (torch.bfloat16, 24, 20, 24, "repro_ssd_scan"),
+    (torch.bfloat16, 40, 24, 96, "repro_ssd_scan"),
+    (torch.bfloat16, 128, 32, 32, "repro_ssd_scan"),
 ])
 def test_ssd_dispatch_by_dtype_and_widths(recorded_launches, dtype, p, n,
                                           chunk, entry):
