@@ -5,9 +5,9 @@ beside the single-kernel design it replaced, on one card.
     python3 benchmarks/torch_ssd_cuda_cores.py [--widths] [--variants]
         [--before DIR]
 
-Yardsticks, float32, each with silu-activated x, B and C as views of one
-``xBC`` activation, g 1, b 1, s 4096, dt = softplus of a normal draw and
-A = -linspace(1, 16, h):
+Yardsticks (``chip_smoke.SSD_CC_YARDSTICKS``), float32, each with
+silu-activated x, B and C as views of one ``xBC`` activation, g 1, b 1,
+s 4096, dt = softplus of a normal draw and A = -linspace(1, 16, h):
 
 - main:   x [1, 4096, 80, 64],  B, C [1, 4096, 1, 128], chunk 256;
 - narrow: x [1, 4096, 320, 16], B, C [1, 4096, 1, 16],  chunk 8;
@@ -15,30 +15,32 @@ A = -linspace(1, 16, h):
 
 At each, this tree's kernel (``ssd_scan_cuda_cores``) is held to the
 ``ssd_scan`` tier against the float32 sequential oracle and timed (CUDA
-events, medians of interleaved rounds) beside its bound (``chip_smoke.bound``
-at the CUDA cores' float32 peak) and the composed ``ref.ssd_chunked``; its
-kernels' device time a call comes from ``torch.profiler``.
+events, medians of interleaved rounds) beside its bound
+(``chip_smoke.ssd_bound`` at the CUDA cores' float32 peak) and the composed
+``ref.ssd_chunked``; its kernels' device time a call comes from
+``torch.profiler``.
 
 ``--widths`` first holds the kernel to the oracle at every width of
-``WIDTHS``: odd chunks (1, 7, 24, 96, 200), p and n off every multiple of
-4 or 16, p above 64 in several p tiles, two and more B/C groups, batch 2,
-bf16, and x, B, C as contiguous tensors or as views of one activation,
-aligned or one element off (element loads in place of vectors).
+``chip_smoke.SSD_CC_WIDTHS`` (``chip_smoke.py`` phase 3 does the same).
 
 ``--variants`` builds variants of this tree's ``ssd_scan.cu`` by text
 substitution (``VARIANTS``), each with one piece of work taken out, and
 times each beside the kernel as it is at the yardsticks the piece runs
 at, with its kernels' device time a call: where the kernels' time goes.
-Their outputs are wrong by design and are not checked.
+Their outputs are wrong by design and are not checked.  The anchors are
+exact lines of ``ssd_scan.cu``: an edit to those lines makes
+``build_variants`` raise with the anchor it missed, and the anchor is then
+updated with the edit.
 
-``--before DIR`` names a checkout of the tree before the chunk-parallel
-redesign (for example unpacked with ``git archive`` into a git-ignored
-directory).  Its ``ssd_scan.cu`` is built alone with nvcc into
-``build/ssd_cuda_cores_before/`` and called through the C entry it had
-then (one kernel, no workspace), checked against the same oracle and
-timed in the same rounds, in the order before, tree, tree, before.  The
-card's name and power limit come first; a JSON line with every number
-comes last.  Needs a card and nvcc.
+``--before DIR`` names a checkout of a tree whose ``ssd_scan.cu`` is the
+single-kernel design the chunk-parallel one replaced (commit 2f0fc7b, for
+example unpacked with ``git archive`` into a git-ignored directory).  It is
+built alone with nvcc into ``build/ssd_cuda_cores_before/`` and called
+through that design's C entry (``BEFORE_SIGNATURE``: one kernel, no
+workspace), checked against the same oracle and timed in the same rounds,
+in the order before, tree, tree, before.  The card's name and power limit
+come first; a JSON line with every number comes last.  Needs a card and
+nvcc.
 """
 from __future__ import annotations
 
@@ -61,32 +63,6 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     cuda_core_workspace, ssd_scan_cuda_cores)
 
-# name -> (h, p, n, chunk); g 1, b 1, s 4096
-YARDSTICKS = {"main": (80, 64, 128, 256), "narrow": (320, 16, 16, 8),
-              "wide": (40, 128, 128, 256)}
-# --widths: (b, h, p, n, g, chunk, s, dtype, layout); layout "xbc": views
-# of one activation, "sep": contiguous tensors, "off1": views one element
-# off a 16-byte boundary
-WIDTHS = [
-    (1, 8, 16, 16, 1, 8, 512, torch.float32, "xbc"),
-    (1, 8, 16, 16, 1, 8, 512, torch.bfloat16, "xbc"),
-    (1, 4, 8, 6, 2, 8, 256, torch.float32, "xbc"),
-    (1, 4, 24, 20, 1, 24, 240, torch.float32, "xbc"),
-    (1, 4, 24, 20, 1, 24, 264, torch.float32, "sep"),
-    (1, 2, 40, 24, 1, 96, 384, torch.float32, "xbc"),
-    (1, 2, 128, 32, 1, 32, 320, torch.float32, "xbc"),
-    (1, 3, 17, 5, 1, 7, 140, torch.float32, "xbc"),
-    (1, 2, 64, 128, 1, 256, 1024, torch.float32, "xbc"),
-    (1, 2, 130, 128, 2, 200, 800, torch.float32, "sep"),
-    (1, 4, 16, 128, 1, 1, 64, torch.float32, "xbc"),
-    (1, 4, 32, 64, 2, 64, 256, torch.float32, "xbc"),
-    (1, 1, 12, 16, 1, 256, 512, torch.float32, "xbc"),
-    (2, 4, 16, 16, 1, 8, 256, torch.float32, "xbc"),
-    (2, 4, 16, 16, 1, 8, 256, torch.float32, "off1"),
-    (1, 4, 64, 128, 1, 256, 512, torch.bfloat16, "xbc"),
-    (1, 4, 24, 20, 2, 24, 240, torch.bfloat16, "off1"),
-    (1, 2, 40, 24, 1, 96, 384, torch.bfloat16, "off1"),
-]
 BEFORE_OUT = ROOT / "build" / "ssd_cuda_cores_before"
 # the C entry of the single-kernel design: x, dt, A, B, C, y; batch, S, H,
 # G, P, N, chunk; the strides of x, dt, B, C; the dtype code; the stream
@@ -109,7 +85,7 @@ VARIANTS = {
     "chunk_out_small without the state update": (("narrow",), [(
         "    if (valid && kk + 1 < kg) {",
         "    if (valid && kk + 1 < 0 * kg) {")]),
-    "chunk_state without its products": (("narrow", "main"), [(
+    "chunk_state without its products": (("narrow", "main", "wide"), [(
         "    if (active) {\n      const float* xt",
         "    if (active && pl.R < 0) {\n      const float* xt")]),
     "chunk_out_large without M x": (("main", "wide"), [(
@@ -119,6 +95,11 @@ VARIANTS = {
         ("main", "wide"), [(
             "  for (int nn = 0; nn < pl.NPAD; nn += 4) {\n    float4 cv[4];\n",
             "  for (int nn = 0; nn < 0; nn += 4) {\n    float4 cv[4];\n")]),
+    "chunk_out_large without either product": (("main", "wide"), [(
+        "const int jend = jt == it ? min(kTile, 8 * warp + 8) : kTile;",
+        "const int jend = 0;"), (
+        "  for (int nn = 0; nn < pl.NPAD; nn += 4) {\n    float4 cv[4];\n",
+        "  for (int nn = 0; nn < 0; nn += 4) {\n    float4 cv[4];\n")]),
 }
 VARIANT_OUT = ROOT / "build" / "ssd_cuda_cores_variants"
 
@@ -209,36 +190,6 @@ def inputs(gen, h, p, n, chunk, s=4096, g=1):
     return x, dt, A, B, C
 
 
-def check_widths(gen) -> None:
-    """The kernel against the float32 sequential oracle at ``WIDTHS``,
-    each within its dtype's tier (silu inputs, dt of order 1)."""
-    for b, h, p, n, g, chunk, s, dtype, layout in WIDTHS:
-        width = h * p + 2 * g * n
-        off = 1 if layout == "off1" else 0
-        flat = F.silu(torch.randn(b * s * width + off, generator=gen,
-                                  device="cuda")).to(dtype)
-        xBC = flat[off:].view(b, s, width)
-        x = xBC[..., :h * p].reshape(b, s, h, p)
-        B = xBC[..., h * p:h * p + g * n].reshape(b, s, g, n)
-        C = xBC[..., h * p + g * n:].reshape(b, s, g, n)
-        if layout == "sep":
-            x, B, C = x.contiguous(), B.contiguous(), C.contiguous()
-        dt = F.softplus(torch.randn(b, s, h, generator=gen, device="cuda"))
-        A = -torch.linspace(1.0, 16.0, h, device="cuda")
-        y = ssd_scan_cuda_cores(x, dt, A, B, C, chunk)
-        Bh, Ch = (t.repeat_interleave(h // g, dim=2) for t in (B, C))
-        want = ref.ssd_reference(x, dt, A, Bh, Ch)[0]
-        tier = ops.TOLERANCE_TIERS["ssd_scan" if dtype == torch.float32
-                                   else "ssd_scan_bf16"]
-        ok, err = cs.within(y, want, tier)
-        _, worst = cs.tier_misses(y, want, tier)
-        cs.log(f"width b {b} h {h} p {p} n {n} g {g} chunk {chunk} s {s} "
-               f"{str(dtype)[6:]} {layout}: max_abs_err {err:.3e}, worst "
-               f"error / tolerance {worst:.3f}, ok={ok}")
-        cs.check(ok, f"width {(b, h, p, n, g, chunk, s, dtype, layout)} "
-                     f"outside its tier")
-
-
 def turns(fns: dict, rounds: int, iters: int) -> dict:
     """Medians of ``cs.time_ms`` over ``rounds``, the functions taken in
     turn, the order reversed every other round (a, b, b, a, ...)."""
@@ -267,9 +218,9 @@ def main() -> None:
     tier = ops.TOLERANCE_TIERS["ssd_scan"]
     gen = torch.Generator(device="cuda").manual_seed(0)
     if args.widths:
-        check_widths(gen)
+        cs.ssd_cc_widths(gen)
     out = {}
-    for name, (h, p, n, chunk) in YARDSTICKS.items():
+    for name, (h, p, n, chunk) in cs.SSD_CC_YARDSTICKS.items():
         b, s, g = 1, 4096, 1
         x, dt, A, B, C = inputs(gen, h, p, n, chunk)
         Bh, Ch = (t.repeat_interleave(h, dim=2) for t in (B, C))
@@ -287,11 +238,7 @@ def main() -> None:
             cs.check(ok, f"{name} {who} outside ssd_scan")
             rec[f"{who}_max_abs_err"] = err
         med = turns(fns, 4, 5)
-        nc = s // chunk
-        nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * 4 \
-            + 4 * (b * s * h + h)
-        flops = b * h * nc * (chunk * (chunk + 1) * (n + p)
-                              + 4 * chunk * p * n)
+        nbytes, flops = cs.ssd_bound(b, s, h, g, p, n, chunk, 4)
         bnd, by = cs.bound(nbytes, flops, torch.float32)
         composed = cs.time_ms(lambda: ref.ssd_chunked(x, dt, A, B, C, chunk),
                               5)

@@ -19,7 +19,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    kernels also for 16-byte loads and stores (LDG.E.128, STG.E.128), the
    32-bit-counter ones' static ALU-pipe and multiply-add-pipe instructions
    an element and instruction mixes printed, and the CUDA-core SSD scan's
-   22 builds (``ssd_scan.cu``) for no local-memory traffic and cp.async
+   16 builds (``ssd_scan.cu``) for no local-memory traffic and cp.async
    (LDGSTS) in their float32 builds;
 3. every kernel against its plain PyTorch version on the card at the main
    paths' shapes (rmsnorm [4096, 4096]; flash attention [1, 4096, 32, 128]
@@ -40,7 +40,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    cases also against the oracle in float64, with silu and signed
    inputs; the float32 route also at four narrower widths, p 16/32/48 and
    n 32/48/80/112, so that each of its builds is checked); the CUDA-core
-   SSD kernel at the widths it serves, through ``ssd_scan_cuda``: narrow
+   SSD kernel at the 20 widths of ``SSD_CC_WIDTHS`` (each of its builds,
+   short last groups, element loads, bf16), then at the widths it serves,
+   through ``ssd_scan_cuda``: narrow
    [1, 4096, 320, 16] with n 16, chunk 8 (mamba2's d_inner at the tiny
    configurations' SSD widths) and wide [1, 4096, 40, 128] with n 128,
    chunk 256, float32 silu, against the oracle and the float64 witness,
@@ -384,15 +386,46 @@ SSD_SM90_KERNELS = {"ssd_chunk_state_kernel": (1, True),
                     "ssd_f32_chunk_out_kernel": (4, True)}
 # the CUDA-core SSD scan's kernels (ssd_scan.cu): name -> instances in the
 # SASS (float32 and bf16 each; chunk_state for two thread tiles,
-# chunk_out_small for TN 2/4/8/16, chunk_out_large for TQ 1/2/4)
+# chunk_out_small for TN 2/4/8/16, chunk_out_large once)
 SSD_CC_KERNELS = {"ssd_cc_chunk_state_kernel": 4, "ssd_cc_chunk_cb_kernel": 2,
                   "ssd_cc_chunk_out_small_kernel": 8,
-                  "ssd_cc_chunk_out_large_kernel": 6}
+                  "ssd_cc_chunk_out_large_kernel": 2}
 # the CUDA-core SSD route's yardsticks in phase 3 (float32, g 1, s 4096):
 # name -> (h, p, n, chunk); main is mamba2-2.7b's widths, narrow its d_inner
 # at the tiny configurations' SSD widths, wide head_dim 128 at its d_inner
 SSD_CC_YARDSTICKS = {"main": (80, 64, 128, 256), "narrow": (320, 16, 16, 8),
                      "wide": (40, 128, 128, 256)}
+# more widths the CUDA-core SSD kernel is held to in phase 3, so that each of
+# its SSD_CC_KERNELS builds runs, with short last groups (chunks that do not
+# divide 64), p and n off every multiple of 4 and 16, p tiles past 64, two
+# and more B/C groups, batch 2, and element loads: (b, h, p, n, g, chunk,
+# s, dtype, layout); layout "xbc": views of one activation, "sep":
+# contiguous tensors, "off1": views one element off a 16-byte boundary.
+# chunk_out_small's TN (threads a (head, p) pair) is 2 at n <= 16, 4 at
+# n <= 32, 8 at n <= 64 and 16 above, in each dtype
+F32, BF16 = torch.float32, torch.bfloat16
+SSD_CC_WIDTHS = [
+    (1, 8, 16, 16, 1, 8, 512, F32, "xbc"),
+    (1, 8, 16, 16, 1, 8, 512, BF16, "xbc"),
+    (1, 4, 8, 6, 2, 8, 256, F32, "xbc"),
+    (1, 4, 24, 20, 1, 24, 240, F32, "xbc"),
+    (1, 4, 24, 20, 1, 24, 264, F32, "sep"),
+    (1, 2, 40, 24, 1, 96, 384, F32, "xbc"),
+    (1, 2, 128, 32, 1, 32, 320, F32, "xbc"),
+    (1, 3, 17, 5, 1, 7, 140, F32, "xbc"),
+    (1, 2, 64, 128, 1, 256, 1024, F32, "xbc"),
+    (1, 2, 130, 128, 2, 200, 800, F32, "sep"),
+    (1, 4, 16, 128, 1, 1, 64, F32, "xbc"),
+    (1, 4, 32, 64, 2, 64, 256, F32, "xbc"),
+    (1, 1, 12, 16, 1, 256, 512, F32, "xbc"),
+    (2, 4, 16, 16, 1, 8, 256, F32, "xbc"),
+    (2, 4, 16, 16, 1, 8, 256, F32, "off1"),
+    (1, 4, 64, 128, 1, 256, 512, BF16, "xbc"),
+    (1, 4, 24, 20, 2, 24, 240, BF16, "off1"),
+    (1, 2, 40, 24, 1, 96, 384, BF16, "off1"),
+    (1, 4, 32, 64, 2, 64, 256, BF16, "xbc"),
+    (1, 4, 16, 128, 1, 16, 128, BF16, "sep"),
+]
 
 
 def log(msg: str) -> None:
@@ -457,6 +490,21 @@ def bound(nbytes: float, ops_: float, dtype, peak: float = None) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops_ / (peak or PEAK_OPS_PER_S[dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ssd_bound(b: int, s: int, h: int, g: int, p: int, n: int, chunk: int,
+              elem: int) -> tuple:
+    """Bytes and flops the SSD scan needs at least: x, B and C (``elem``
+    bytes an element), dt and A read once, y written once; C B^T over the
+    causal pairs i >= j of each chunk once per B/C group (every head of the
+    group shares it), and per head M x over those pairs, the entering-state
+    term and the state update."""
+    pairs = chunk * (chunk + 1)
+    nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * elem \
+        + 4 * (b * s * h + h)
+    flops = b * (s // chunk) * (g * pairs * n
+                                + h * (pairs * p + 4 * chunk * p * n))
+    return nbytes, flops
 
 
 def within(a: torch.Tensor, b: torch.Tensor, tier: dict) -> tuple:
@@ -1082,17 +1130,12 @@ def kernel_ssd(gen) -> dict:
             del d, y64, terms, e
         if widths == main and g == 1 and regime == "typical" \
                 and act == "silu":
-            # Bound: x, B, C, dt, A read once, y written once; the causal
-            # pairs i >= j of each chunk for C B^T and M x, plus the
-            # entering-state term and the state update.  float32 accuracy
-            # on the tensor cores takes six bf16 products per multiply-add
-            # (the route's design), so its bound is that work at the bf16
-            # peak; the CUDA cores' float32 bound is printed beside it
-            nc, es = s // chunk, x.element_size()
-            nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * es \
-                + 4 * (b * s * h + h)
-            flops = b * h * nc * (chunk * (chunk + 1) * (n + p)
-                                  + 4 * chunk * p * n)
+            # Bound: ssd_bound's work.  float32 accuracy on the tensor
+            # cores takes six bf16 products per multiply-add (the route's
+            # design), so its bound is that work at the bf16 peak; the CUDA
+            # cores' float32 bound is printed beside it
+            nbytes, flops = ssd_bound(b, s, h, g, p, n, chunk,
+                                      x.element_size())
             if f32:
                 bnd, by = bound(nbytes, 6 * flops, dtype,
                                 PEAK_OPS_PER_S[torch.bfloat16])
@@ -1164,6 +1207,40 @@ def kernel_ssd(gen) -> dict:
     return recs
 
 
+def ssd_cc_widths(gen) -> dict:
+    """The CUDA-core SSD kernel against the float32 sequential oracle at
+    each of ``SSD_CC_WIDTHS`` (silu inputs, dt of order 1), within its
+    dtype's tier.  Returns each width's worst error over its tolerance."""
+    out = {}
+    for b, h, p, n, g, chunk, s, dtype, layout in SSD_CC_WIDTHS:
+        width = h * p + 2 * g * n
+        off = 1 if layout == "off1" else 0
+        flat = F.silu(torch.randn(b * s * width + off, generator=gen,
+                                  device="cuda")).to(dtype)
+        xBC = flat[off:].view(b, s, width)
+        x = xBC[..., :h * p].reshape(b, s, h, p)
+        B = xBC[..., h * p:h * p + g * n].reshape(b, s, g, n)
+        C = xBC[..., h * p + g * n:].reshape(b, s, g, n)
+        if layout == "sep":
+            x, B, C = x.contiguous(), B.contiguous(), C.contiguous()
+        dt = F.softplus(torch.randn(b, s, h, generator=gen, device="cuda"))
+        A = -torch.linspace(1.0, 16.0, h, device="cuda")
+        y = ssd_scan_cuda_cores(x, dt, A, B, C, chunk)
+        Bh, Ch = (t.repeat_interleave(h // g, dim=2) for t in (B, C))
+        want = ref.ssd_reference(x, dt, A, Bh, Ch)[0]
+        tier = ops.TOLERANCE_TIERS["ssd_scan" if dtype == torch.float32
+                                   else "ssd_scan_bf16"]
+        ok, err = within(y, want, tier)
+        _, worst = tier_misses(y, want, tier)
+        label = (f"b {b} h {h} p {p} n {n} g {g} chunk {chunk} s {s} "
+                 f"{str(dtype)[6:]} {layout}")
+        log(f"ssd_scan CUDA cores at {label}: max_abs_err {err:.3e}, worst "
+            f"error / tolerance {worst:.3f}, ok={ok}")
+        check(ok, f"ssd_scan CUDA cores at {label} outside its tier")
+        out[label] = worst
+    return out
+
+
 def kernel_ssd_cuda_cores(gen) -> dict:
     """The CUDA-core SSD kernel at the widths it serves, through
     ``ssd_scan_cuda`` (which must route them to it), x, B and C as views of
@@ -1174,10 +1251,11 @@ def kernel_ssd_cuda_cores(gen) -> dict:
     beside its bound at the CUDA cores' float32 peak, with its kernels'
     device time a call; the narrow widths on signed inputs, held to the
     witness alone with their elementwise misses printed; and in bf16 at the
-    narrow widths, held to ``ssd_scan_bf16``.  Returns the timed
-    yardsticks' records and the other cases' errors."""
+    narrow widths, held to ``ssd_scan_bf16``.  First the widths of
+    ``ssd_cc_widths``.  Returns the timed yardsticks' records, the other
+    cases' errors and the widths' worst errors over their tolerance."""
     b, g, s = 1, 1, 4096
-    out = {}
+    out = {"widths worst / tolerance": ssd_cc_widths(gen)}
     for name, dtype, act in (("narrow", torch.float32, "silu"),
                              ("wide", torch.float32, "silu"),
                              ("narrow", torch.float32, "signed"),
@@ -1235,11 +1313,7 @@ def kernel_ssd_cuda_cores(gen) -> dict:
                     rec["float64_misses"] = miss
             del d, y64, terms, e
         if f32 and act == "silu":
-            nc = s // chunk
-            nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * 4 \
-                + 4 * (b * s * h + h)
-            flops = b * h * nc * (chunk * (chunk + 1) * (n + p)
-                                  + 4 * chunk * p * n)
+            nbytes, flops = ssd_bound(b, s, h, g, p, n, chunk, 4)
             bnd, by = bound(nbytes, flops, dtype)
             med = interleaved_medians(
                 {"kernel": lambda: ssd_scan_cuda(x, dt, A, B, C, chunk),

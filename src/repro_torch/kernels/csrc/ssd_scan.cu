@@ -45,35 +45,46 @@
 //    chunk, pair of 64-row tiles j <= i), writes C_i B_j^T to `cb` once
 //    for all the heads of the group (80 at mamba2-2.7b's widths); then
 //    ssd_cc_chunk_out_large_kernel, a block per (chunk of a (batch, head),
-//    p tile of 16 TQ <= 64, 64-row tile i), longest tiles first, three
-//    blocks an SM: exp(G_i) C_i H^T, then for each tile j <= i, M = C B^T
-//    o exp(G_i - G_j) o dt_j (masked before exp) and M x_j, 4 x TQ a
-//    thread, x_j double-buffered through cp.async in the bytes C_i and H
-//    used; on the diagonal tile a warp stops M x at its own rows.
+//    p tile of 64, 64-row tile i), longest tiles first, three blocks an
+//    SM: exp(G_i) C_i H^T, then for each tile j <= i, M = C B^T o
+//    exp(G_i - G_j) o dt_j (masked before exp) and M x_j, 4 x 4 a thread,
+//    x_j double-buffered through cp.async in the bytes C_i and H used; on
+//    the diagonal tile a warp stops M x at its own rows.  No configuration
+//    of the repo sends a chunk above 64 rows here (mamba2-2.7b's widths go
+//    to the tensor-core routes), so this path is one build, untuned for
+//    narrow p.
 // x, B and C are read through their strides (in the model they are views of
 // one xBC activation) at group h / (H / G): no broadcast or contiguous
 // copies.  Where every 4-element group of an operand is aligned, its tiles
 // load as 16-byte cp.async (float32) or 8-byte loads (bf16); otherwise
 // element by element.
 //
-// Bound on this card, as chip_smoke.py's phase 3 counts it (x, B, C, dt
-// read once, y written once; c(c+1)(n + p) flops a chunk and head over the
-// causal pairs, plus 4 c p n for the entering state and its update), at
-// the CUDA cores' 67 TFLOP/s float32 peak and 3.35 TB/s, and what the
-// design does at each yardstick (times: benchmarks/torch_ssd_cuda_cores.py
-// on an H100 80GB HBM3 at 700 W):
+// Bound on this card, as chip_smoke.py's ssd_bound counts it (x, B, C, dt
+// read once, y written once; c(c+1) n flops a chunk and B/C group for
+// C B^T over the causal pairs, and per head c(c+1) p for M x plus 4 c p n
+// for the entering state and its update), at the CUDA cores' 67 TFLOP/s
+// float32 peak and 3.35 TB/s, and what the design does at each yardstick
+// (benchmarks/torch_ssd_cuda_cores.py on an H100 80GB HBM3 at 700 W, its
+// --variants taking one piece of work out at a time):
 // - narrow, x [1, 4096, 320, 16], n 16, chunk 8: bytes, 173.5 MB, 0.0518
-//   ms (operations 1.72 GFLOP, 0.0257 ms).  The design reads x twice and
+//   ms (operations 1.53 GFLOP, 0.0229 ms).  The design reads x twice and
 //   moves the 21 MB workspace three times (336 MB, ~0.10 ms); groups of 64
 //   rows keep the workspace at a quarter of x, and the chunk x chunk
-//   products keep the operations near the count above.  0.325 ms, 16% of
-//   the bound: chunk_out_small's walk and its per-block load and decay
-//   prologue are latency-bound at 3 blocks an SM.
-// - wide, x [1, 4096, 40, 128], n 128, chunk 256: operations, 21.5 GFLOP,
-//   0.321 ms (bytes 0.0515 ms).  C B^T once per group and chunk instead of
-//   per head and p tile; 0.727 ms, 44%.
-// - main, x [1, 4096, 80, 64], n 128, chunk 256: operations, 26.9 GFLOP,
-//   0.4016 ms (bytes 0.052 ms); 0.728 ms, 55%.
+//   products keep the operations near the count above.  0.326 ms, 16% of
+//   the bound: chunk_out_small takes 201 us, 77 without its walk of the
+//   group's chunks, which is latency-bound at 3 blocks an SM, as is its
+//   per-block load and decay prologue.
+// - main, x [1, 4096, 80, 64], n 128, chunk 256 (mamba2-2.7b's widths,
+//   which its configurations send to the tensor-core routes): operations,
+//   16.26 GFLOP, 0.2427 ms (bytes 0.052 ms).  C B^T once per group and
+//   chunk, not per head and p tile.  0.730 ms, 33%: of chunk_out_large's
+//   434 us, 187 are neither product (loads of C_i, H, x_j and the C B^T
+//   tiles, ~0.74 GB from L2, and M's exponentials); of chunk_state's 233,
+//   125 are outside its products; the products themselves run at ~68% of
+//   the float32 peak; the state pass and the C B^T pass add 42 us.
+// - wide, x [1, 4096, 40, 128], n 128, chunk 256 (no configuration has
+//   p 128): the same 16.26 GFLOP and 0.2427 ms; 0.736 ms, 33%, split as at
+//   main (chunk_out_large 433 us, 177 of them neither product).
 //
 // Precision: the decay's running sums G are accumulated in double (dA
 // formed in float32, as the reference forms it), each difference rounded
@@ -620,10 +631,12 @@ __global__ void __launch_bounds__(kThreads, 3)
 
 // 3b. chunk > 64: one 64-row tile i of a chunk, against the tiles j <= i,
 // with C_i B_j^T from ssd_cc_chunk_cb_kernel
-template <typename T, int TQ>
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 3)
     ssd_cc_chunk_out_large_kernel(Args a, Plan pl) {
-  constexpr int PT = 16 * TQ;
+  // one build: p tiles of 64, 4 x 4 outputs a thread, whatever p is (no
+  // configuration sends chunks above 64 rows, so nothing is tuned for them)
+  constexpr int TQ = 4, PT = 16 * TQ;
   extern __shared__ __align__(16) unsigned char smem[];
   // the entering-state product first, then x_j (two buffers) and M^T
   // over the same bytes
@@ -934,14 +947,11 @@ int launch(const Args& a, int batch, cudaStream_t st) {
   err = start(ssd_cc_chunk_cb_kernel<T>, cgrid,
               sizeof(float) * 2 * kTile * pl.NSTR, st, a, pl);
   if (err != cudaSuccess) return err;
-  const int TQ = a.P > 32 ? 4 : a.P > 16 ? 2 : 1;
-  pl.PT = 16 * TQ;
+  pl.PT = kTile;
   const dim3 grid((unsigned)(batch * a.H * pl.NG),
                   (unsigned)((a.P + pl.PT - 1) / pl.PT), (unsigned)itiles);
-  const Kernel kern = TQ == 4   ? ssd_cc_chunk_out_large_kernel<T, 4>
-                      : TQ == 2 ? ssd_cc_chunk_out_large_kernel<T, 2>
-                                : ssd_cc_chunk_out_large_kernel<T, 1>;
-  return start(kern, grid, large_smem(pl), st, a, pl);
+  return start(ssd_cc_chunk_out_large_kernel<T>, grid, large_smem(pl), st, a,
+               pl);
 }
 
 }  // namespace

@@ -16,20 +16,21 @@
 // the short recurrence over H is sequential, so the chunks of one head run
 // in parallel instead of in a loop inside one block.
 //
-// Bound on this card: operations.  The scan is causal: each (chunk, head)
-// costs c(c+1)(n + p) flops over the pairs i >= j for C.B^T and M.x, plus
-// 4 c p n for the entering-state term and the state update.  At the main
-// path's [1, 4096, 80, 64] with n = 128, c = 256 that is 26.9 GFLOP,
-// 0.0272 ms at the 989 TFLOP/s of bf16 tensor cores.  The compulsory bytes
-// (x, B, C, dt read once, y written once, x, B and C as strided views of one
-// [1, 4096, 5376] bf16 activation) are ~87 MB, ~0.026 ms at 3.35 TB/s.
+// Bound on this card: bytes.  The compulsory bytes (x, B, C, dt read once,
+// y written once, x, B and C as strided views of one [1, 4096, 5376] bf16
+// activation) are ~87 MB, 0.0261 ms at 3.35 TB/s.  The scan is causal:
+// each (chunk, B/C group) costs c(c+1) n flops over the pairs i >= j for
+// C.B^T, each (chunk, head) c(c+1) p for M.x plus 4 c p n for the
+// entering-state term and the state update.  At the main path's
+// [1, 4096, 80, 64] with n = 128, c = 256, g = 1 that is 16.3 GFLOP,
+// 0.0164 ms at the 989 TFLOP/s of bf16 tensor cores.
 // What this design adds: a float32 workspace of b.h.nc.p.n elements
 // (42 MB at the main shape) that holds S and then, in place, H: written
 // twice, S read once and each H read by the chunk's four row-tile blocks,
 // ~280 MB, ~0.085 ms at 3.35 TB/s where L2 serves none of the repeats,
 // plus each row's decay sum (double) and dt (float), 3.9 MB;
 // and the products of the bf16 pieces below: 64.7 GFLOP issued
-// (chunk_state 16.1, C.H^T 15.1, C.B^T 13.4, M.x 20.1) against the 26.9
+// (chunk_state 16.1, C.H^T 15.1, C.B^T 13.4, M.x 20.1) against the 16.3
 // counted, 0.065 ms at the peak.
 //
 // Three kernels, launched in order on the caller's stream:

@@ -15,13 +15,14 @@
 //   H_0 = 0, H_{c+1} = exp(cum_last_c) H_c + S_c        (entering states)
 //   y_i     = sum_{j<=i} ((C_i.B_j) L_ij dt_j) x_j + exp(cum_i) C_i.H_c^T
 //
-// Bound on this card: operations.  The scan counts c(c+1)(n + p) flops per
-// (chunk, head) over the causal pairs for C.B^T and M.x, plus 4 c p n for
-// the entering-state term and the state update: 26.9 GFLOP at the main
-// shape [1, 4096, 80, 64], n 128, c 256.  float32 accuracy from the tensor
-// cores costs six bf16 products per multiply-add (below), the same issue
-// cost as three TF32 products: 0.163 ms at 989 TFLOP/s (0.40 ms for the
-// same flops at the CUDA cores' 67).  The compulsory bytes (x, B, C, dt read
+// Bound on this card: operations.  The scan counts c(c+1) n flops per
+// (chunk, B/C group) over the causal pairs for C.B^T, and per (chunk,
+// head) c(c+1) p for M.x plus 4 c p n for the entering-state term and the
+// state update: 16.3 GFLOP at the main shape [1, 4096, 80, 64], n 128,
+// c 256, g 1.  float32 accuracy from the tensor cores costs six bf16
+// products per multiply-add (below), the same issue cost as three TF32
+// products: 0.0987 ms at 989 TFLOP/s (0.2427 ms for the same flops at the
+// CUDA cores' 67).  The compulsory bytes (x, B, C, dt read
 // once, y written once, x, B and C as strided views of one [1, 4096, 5376]
 // float32 activation) are ~173 MB, 0.052 ms at 3.35 TB/s.  What this design
 // adds: the same float32 workspace as ssd_scan_sm90.cu (S, then H in place,

@@ -12,8 +12,11 @@ chunk's own pairs, then the state update).  The emulation is held to the
 ``ssd_scan`` tier against the JAX package's ``ops.ssd_scan`` (its Pallas
 kernel in interpret mode) on the same numpy inputs.  The wrapper's
 workspace sizes, its group count and its failure path are tested with the
-launch monkeypatched.
+launch monkeypatched, and the bound ``chip_smoke.py`` holds it to by hand.
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -25,6 +28,9 @@ import torch.nn.functional as F  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 TIER = ops.TOLERANCE_TIERS["ssd_scan"]          # rtol 1e-4, atol 1e-5
 
@@ -280,3 +286,21 @@ def test_views_reach_the_kernel_in_place(recorded_launches):
     assert args[16:19] == (s * width, width, p)              # x
     assert args[22:25] == (s * width, width, n)              # B
     assert args[25:28] == (s * width, width, n)              # C
+
+
+# (b, s, h, g, p, n, chunk, bytes an element) -> (bytes, flops) by hand,
+# at the yardsticks main, narrow and wide and main with 8 B/C groups
+BOUNDS = [
+    ((1, 4096, 80, 1, 64, 128, 256, 4), (173_277_504, 16_261_840_896)),
+    ((1, 4096, 320, 1, 16, 16, 8, 4), (173_540_608, 1_531_510_784)),
+    ((1, 4096, 40, 1, 128, 128, 256, 4), (172_621_984, 16_261_840_896)),
+    ((1, 4096, 80, 8, 64, 128, 256, 2), (101_974_336, 17_205_035_008)),
+]
+
+
+@pytest.mark.parametrize("dims,want", BOUNDS)
+def test_bound_counts_cbt_once_a_group(dims, want):
+    """``chip_smoke.ssd_bound``: C.B^T over a chunk's causal pairs once per
+    B/C group, c(c+1) n flops, not once per head; so main and wide, with
+    the same h p, need the same flops."""
+    assert chip_smoke.ssd_bound(*dims) == want
