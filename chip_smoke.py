@@ -114,9 +114,28 @@ Phases, in order; any failure exits non-zero and prints no result:
 8. the float32 ssm path: mamba2-2.7b at its widths in float32, depth cut
    to 2 layers, for 2 steps as phase 5 runs them, every SSD launch on the
    float32 tensor-core route;
-9. a JSON line with every kernel's numbers (each record's ``shape`` names
-   the inputs its times were taken on), one with every recovery's, then
-   the result line.
+9. the scenario engine on the card (``repro_torch.scenarios``): the
+   kernel corpus of ``kernels/check.py`` (flash GQA causal and
+   bidirectional at head_dim 32 on the 3xTF32 route, rmsnorm, the SSD scan
+   at chunk 8 on the CUDA-core route, AdamW), every row within its tier;
+   each of the library's six scenarios (tiny dense, 8 layers, dp 4, pp 2)
+   through ``run_scenario`` with ``default_cluster_checkers(device="cuda")``:
+   the card cluster held to its CPU twin under the kernel-consistency bounds
+   after every event and step, dataflow, RNG and MTTR checked at every
+   event and step, launch counts exact (derived from each step's items;
+   every flash launch on the 3xTF32 route, dropout launches exactly where
+   the rate is 0.1), printing losses, recoveries, modeled MTTR, the final
+   DP width and the wall time; then shrink_regrow's trace shape (scale-in of
+   rank (1, 1) at step 1, rejoin at step 2, horizon 4) on mamba2-2.7b at
+   its widths in bf16, depth cut to 2 layers, through
+   ``ClusterScenarioRunner`` with the dataflow, RNG and MTTR checkers and
+   the ring snapshot equal to the device shards after every event and
+   step, every SSD launch on ``ssd_scan_sm90``, printing step seconds,
+   host-snapshot shares and recovery wall clocks; and the phase's wall
+   time;
+10. a JSON line with every kernel's numbers (each record's ``shape`` names
+   the inputs its times were taken on), one with every recovery's, one
+   with every scenario's, then the result line.
 """
 from __future__ import annotations
 
@@ -141,7 +160,11 @@ from repro_torch.core.cluster import VirtualCluster  # noqa: E402
 from repro_torch.core.cost_model import HardwareSpec  # noqa: E402
 from repro_torch.core.events import ElasticEvent, EventKind  # noqa: E402
 from repro_torch.core.fabric.snapshot import SnapshotPool  # noqa: E402
+from repro_torch.core.invariants import (  # noqa: E402
+    DataflowConsistencyChecker, InvariantChecker, KernelConsistencyChecker,
+    MttrBoundChecker, RngConsistencyChecker, default_cluster_checkers)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.check import check_kernels  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda, flash_attention_cuda_cores, uses_bf16_mma,
     uses_sm90, uses_tf32)
@@ -154,6 +177,9 @@ from repro_torch.kernels import threefry  # noqa: E402
 from repro_torch.kernels.threefry import threefry_dropout_cuda  # noqa: E402
 from repro_torch.models.registry import tiny_config  # noqa: E402
 from repro_torch.optim.adam import AdamConfig, adam_update_flat_np  # noqa: E402
+from repro_torch.scenarios import (SCENARIOS, ClusterScenarioRunner,  # noqa: E402
+                                   ClusterWorkload, Scenario, get_scenario,
+                                   run_scenario)
 from repro_torch.weights import params_to_numpy  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -196,13 +222,14 @@ HAND_WRITTEN_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_tf32_kernel",
 # and the frequencies keep the reference's model defaults
 H100_HW = HardwareSpec(peak_flops=PEAK_OPS_PER_S[torch.bfloat16],
                        hbm_bw=HBM_BYTES_PER_S, hbm_bytes=80e9)
-# kernel-consistency bounds of the reference (core/invariants.py)
-LOSS_RTOL, LOSS_ATOL, PARAM_RTOL, PARAM_ATOL0 = 1e-4, 1e-6, 1e-4, 1e-5
+# the float32 twins' bounds: KernelConsistencyChecker's (the reference's),
+# losses by its loss_within, state vectors by its PARAM_RTOL and param_atol
+KCC = KernelConsistencyChecker
 # the bf16 twins' bound (tests/test_torch_bf16_twin.py): both sides round
 # activations and gradients to bf16, at different places, so the float32
 # bounds above do not apply.  Losses within one bf16 spacing (2**-7
 # relative); master/mu/nu within 2**-7 relative on top of the step-sign
-# allowance PARAM_ATOL0 + 2*lr*opt_step
+# allowance KCC.param_atol
 BF16_LOSS_RTOL, BF16_PARAM_RTOL = 2.0 ** -7, 2.0 ** -7
 # the bf16 tiny configurations on the tensor-core routes: flash_attention_sm90
 # (head_dim 64) and ssd_scan_sm90 (headdim 64, state 64, chunk 64)
@@ -1566,14 +1593,14 @@ def phase_tiny_twin(family: str, twin: str = "float32",
     check(all(a.dtype == b.dtype for a, b in zip(gpu._leaves, cpu._leaves)),
           f"{name}: parameter dtypes differ between card and CPU")
     loss_ok = (lambda a, b: abs(a - b) <= BF16_LOSS_RTOL * abs(b)) if bf16 \
-        else (lambda a, b: abs(a - b) <= LOSS_ATOL + LOSS_RTOL * abs(b))
-    rtol = BF16_PARAM_RTOL if bf16 else PARAM_RTOL
+        else KCC.loss_within
+    rtol = BF16_PARAM_RTOL if bf16 else KCC.PARAM_RTOL
     _build.reset_launch_counts()
     for step in range(3):
         a, b = gpu.train_step(), cpu.train_step()
         check(math.isfinite(a) and loss_ok(a, b),
               f"{name} step {step}: loss {a!r} vs cpu {b!r}")
-        atol = PARAM_ATOL0 + 2.0 * gpu.adam.lr * gpu.opt_step
+        atol = KCC.param_atol(gpu)
         worst = 0.0
         for sg, sc in zip(gpu.stages, cpu.stages):
             check(sg.sizes == sc.sizes and sg.entries == sc.entries,
@@ -1661,13 +1688,13 @@ def phase_tiny_recovery_twin(family: str, dropout_rate: float = 0.0,
                 out[dev] = _twin_op(cl, op)
             if op[0] == "train":
                 a, b = out["cuda"], out["cpu"]
-                check(abs(a - b) <= LOSS_ATOL + LOSS_RTOL * abs(b),
+                check(KCC.loss_within(a, b),
                       f"{where}: loss {a!r} vs cpu {b!r}")
-                atol = PARAM_ATOL0 + 2.0 * gpu.adam.lr * gpu.opt_step
+                atol = KCC.param_atol(gpu)
                 for sg, sc in zip(gpu.stages, cpu.stages):
                     for c in ("master", "mu", "nu"):
                         check(torch.allclose(sg.full(c).cpu(), sc.full(c),
-                                             rtol=PARAM_RTOL, atol=atol),
+                                             rtol=KCC.PARAM_RTOL, atol=atol),
                               f"{where}: stage {c} beyond bounds")
             else:
                 check(out["cuda"] == out["cpu"],
@@ -1937,6 +1964,189 @@ def phase_recovery(cl: VirtualCluster) -> tuple:
     return launches, out
 
 
+class LaunchTally(InvariantChecker):
+    """Exact launch counts over one scenario run.  The counts are set to 0
+    at cluster start, after the kernel-consistency spot check (launches that
+    compare a kernel with its plain version do not count); each step adds
+    what its items launch, an item being one micro-batch of one rank: 2L + 1
+    rmsnorms (two a block, the final norm) and L mixer launches on
+    ``route``, at a positive dropout rate ``dropout_ops`` dropouts a layer,
+    forward and backward; and one fused AdamW per stage."""
+    name = "launch-tally"
+
+    def __init__(self, route: str, dropout_ops: int):
+        self.route, self.dropout_ops = route, dropout_ops
+        self.want = dict.fromkeys(_build.LAUNCHES, 0)
+
+    def on_cluster_start(self, runner, cluster):
+        _build.reset_launch_counts()
+
+    def after_cluster_step(self, step, cluster, loss):
+        L = cluster.cfg.num_layers
+        items = cluster.num_micro * sum(m > 0 for m in cluster.per_rank_mbs)
+        self.want["rmsnorm"] += items * (2 * L + 1)
+        self.want[self.route] += items * L
+        if cluster.cfg.dropout_rate > 0:
+            self.want["threefry_dropout"] += items * L * self.dropout_ops * 2
+        self.want["fused_adam"] += sum(st.total > 0 for st in cluster.stages)
+
+    def check_counts(self, where: str) -> dict:
+        counts = dict(_build.LAUNCHES)
+        check(counts == self.want,
+              f"{where}: launches {counts} != {self.want}")
+        return counts
+
+
+class RingGate(InvariantChecker):
+    """The host ring snapshot equals the device shards after every event
+    and step; also times each ``train_step`` and ``apply_event`` of the
+    cluster between ``torch.cuda.synchronize`` calls."""
+    name = "ring-snapshot"
+
+    def __init__(self):
+        self.step_s, self.snapshot_s, self.recovery_s = [], [], []
+
+    def on_cluster_start(self, runner, cluster):
+        for attr, out in (("train_step", self.step_s),
+                          ("apply_event", self.recovery_s)):
+            def timed(*a, _fn=getattr(cluster, attr), _out=out, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = _fn(*a, **k)
+                torch.cuda.synchronize()
+                _out.append(time.perf_counter() - t0)
+                return res
+            setattr(cluster, attr, timed)
+        self._gate("start", cluster)
+
+    def after_cluster_event(self, step, event, cluster, record):
+        self._gate(f"step {step} after {event.describe()}", cluster)
+
+    def after_cluster_step(self, step, cluster, loss):
+        self.snapshot_s.append(cluster.snapshot_seconds[-1])
+        self._gate(f"step {step}", cluster)
+
+    def _gate(self, where: str, cluster):
+        if not snapshot_matches_device(cluster):
+            self.fail(f"{where}: host ring snapshot != device shards")
+
+
+@dataclasses.dataclass(frozen=True)
+class Mamba2TraceWorkload(ClusterWorkload):
+    """mamba2-2.7b at its published widths in bf16, depth cut to 2 layers,
+    dp 2, pp 2, seq 4096, global batch 4 in 2 micro-batches, on the card,
+    its cost model given ``H100_HW`` (phase 6's)."""
+    family: str = "ssm"
+    num_layers: int = 2
+    dropout_rate: float = 0.0
+    dp: int = 2
+    pp: int = 2
+    global_batch: int = 4
+    num_micro: int = 2
+    seq_len: int = 4096
+    device: str = "cuda"
+
+    def make_cluster(self, **overrides):
+        cfg = dataclasses.replace(mamba2_2p7b.config(),
+                                  num_layers=self.num_layers,
+                                  dropout_rate=self.dropout_rate)
+        kw = dict(global_batch=self.global_batch, num_micro=self.num_micro,
+                  seq_len=self.seq_len, seed=self.seed,
+                  rng_mode=self.rng_mode, device=self.device, hw=H100_HW)
+        kw.update(overrides)
+        return VirtualCluster(cfg, dp=self.dp, pp=self.pp, **kw)
+
+
+def phase_scenarios() -> tuple:
+    """Phase 9, the scenario engine on the card: the kernel corpus
+    (``kernels/check.py``), each of the library's six scenarios with the
+    default card checkers (the card cluster held to its CPU twin under the
+    kernel-consistency bounds; dataflow, RNG and MTTR after every event and
+    step), then shrink_regrow's trace shape on mamba2-2.7b at full width.
+    Launch counts exact over each run.  Returns the launches by path and one
+    record per run."""
+    t_phase = time.perf_counter()
+    for row in check_kernels(seed=0):
+        log(f"corpus {row['case']}: max_abs_err {row['max_abs_err']:.3e} "
+            f"(rtol {row['rtol']}, atol {row['atol']}) within "
+            f"{row['within_tolerance']}")
+        check(row["within_tolerance"], f"corpus {row['case']} outside tier")
+    paths, records = {}, []
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)        # the CPU twins' tensors are tiny
+    try:
+        for name in SCENARIOS:
+            scn, w = get_scenario(name)
+            tally = LaunchTally("flash_attention_tf32", 2)
+            t0 = time.perf_counter()
+            res = run_scenario(scn, w, checkers=[
+                *default_cluster_checkers(device="cuda"), tally])
+            wall = time.perf_counter() - t0
+            counts = tally.check_counts(f"scenario {name}")
+            check((counts["threefry_dropout"] > 0) == (w.dropout_rate > 0),
+                  f"scenario {name}: dropout launches {counts}")
+            losses = res.summary["losses"]
+            check(all(math.isfinite(x) for x in losses),
+                  f"scenario {name}: losses {losses}")
+            rec = dict(name=name, losses=losses,
+                       n_recoveries=res.summary["n_recoveries"],
+                       mttr_total_modeled_s=res.summary["mttr_total"],
+                       final_dp_width=res.steps[-1]["dp_width"],
+                       wall_s=wall, launches=counts)
+            log(f"scenario {name} (dropout {w.dropout_rate}, horizon "
+                f"{scn.horizon}): losses {[round(x, 6) for x in losses]}, "
+                f"{rec['n_recoveries']} recoveries, modeled mttr_total "
+                f"{rec['mttr_total_modeled_s']:.4f} s, final dp width "
+                f"{rec['final_dp_width']}, wall {wall:.1f} s; card == cpu "
+                f"within the kernel-consistency bounds; launches {counts}")
+            paths[f"scenario {name} (tiny dense)"] = counts
+            records.append(rec)
+    finally:
+        torch.set_num_threads(threads)
+    gc.collect()
+    torch.cuda.empty_cache()
+    w = Mamba2TraceWorkload()
+    scn = Scenario.shrink_regrow("shrink_regrow (mamba2-2.7b)",
+                                 rank=w.rank(1, 1), fail_step=1,
+                                 rejoin_step=2, horizon=4)
+    gate, tally = RingGate(), LaunchTally("ssd_scan_sm90", 1)
+    t0 = time.perf_counter()
+    res = ClusterScenarioRunner(scn, w, checkers=[
+        DataflowConsistencyChecker(), RngConsistencyChecker(),
+        MttrBoundChecker(), gate, tally]).run()
+    wall = time.perf_counter() - t0
+    counts = tally.check_counts("mamba2-2.7b shrink_regrow trace")
+    losses = res.summary["losses"]
+    check(all(math.isfinite(x) for x in losses),
+          f"mamba2-2.7b shrink_regrow trace: losses {losses}")
+    check([s["dp_width"] for s in res.steps] == [2, 1, 2, 2],
+          f"mamba2-2.7b shrink_regrow trace: widths {res.steps}")
+    shares = [sn / st for sn, st in zip(gate.snapshot_s, gate.step_s)]
+    for k, (loss, st, sh) in enumerate(zip(losses, gate.step_s, shares)):
+        log(f"mamba2-2.7b trace step {k}: loss {loss:.6f} ({loss!r}) "
+            f"step_s {st:.3f} snapshot share {sh:.3f}")
+    for r, sec in zip(res.recoveries, gate.recovery_s):
+        log(f"mamba2-2.7b trace {r['kind']} {r['ranks']} at step "
+            f"{r['step']}: wall {sec:.3f} s; record (modeled, plan "
+            f"measured) {r['mttr']}")
+    log(f"mamba2-2.7b trace: launches {counts}; ring == device after every "
+        f"event and step; wall {wall:.1f} s")
+    paths["mamba2-2.7b shrink_regrow trace"] = counts
+    records.append(dict(name=scn.name, losses=losses,
+                        n_recoveries=len(res.recoveries),
+                        mttr_total_modeled_s=res.summary["mttr_total"],
+                        final_dp_width=res.steps[-1]["dp_width"],
+                        wall_s=wall, launches=counts, step_s=gate.step_s,
+                        snapshot_share=shares,
+                        recovery_wall_s=gate.recovery_s))
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 9 (scenario engine on the card): {phase_s:.1f} s")
+    return paths, records, phase_s
+
+
 def main() -> None:
     card = phase_device()
     pipes = phase_build()
@@ -2051,6 +2261,8 @@ def main() -> None:
                             dtype="float32"), SSM_F32_LAUNCHES, steps=2)[0]
     gc.collect()
     torch.cuda.empty_cache()
+    scenario_paths, scenarios, scenario_s = phase_scenarios()
+    paths.update(scenario_paths)
     kernels = [dict(name=name, route="cuda", source=SOURCES[name][0],
                     replaces=SOURCES[name][1],
                     launches=sum(p[name] for p in paths.values()),
@@ -2083,6 +2295,7 @@ def main() -> None:
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"recoveries": recoveries}))
+    log(json.dumps({"scenarios": scenarios, "phase_s": scenario_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -246,3 +246,6 @@ class Agent:
             else:
                 self.reported_oom.discard(r)
         return events
+
+    def clear_slow(self, rank: int):
+        self.reported_slow.discard(rank)

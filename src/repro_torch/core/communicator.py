@@ -17,8 +17,10 @@ unified behind one entrypoint — ``apply(GroupDelta, policy) -> OpStats``:
                        (scale-down), or only the new member's links (scale-up).
 
 ``price(delta, policy)`` computes the same ``OpStats`` *without* committing,
-so rebuild alternatives are priced against identical pre-event state.  (The
-reference's deprecated per-mode shims and ``clone`` are not copied.)
+so rebuild alternatives are priced against identical pre-event state.  The
+seed's per-mode methods (``edit``/``partial_rebuild``/``full_rebuild``)
+remain as thin deprecated shims over ``apply``, and ``clone`` gives an
+independent copy.
 
 Internally the link graph is rank-vectorized so a 10^5-rank table prices a
 correlated burst in milliseconds:
@@ -40,6 +42,10 @@ Cost model (calibrated to the paper's measurements on 200Gbps RoCE):
   in those bands and, more importantly, reproduce the *scaling shape*:
   edit is O(degree) (flat), rebuilds grow with rank count.
 
+The seed dict/set implementation survives as
+``core.legacy_comm.LegacyDynamicCommunicator``, the equivalence oracle of
+``core.invariants.MttrThroughputChecker``.
+
 On a real deployment the "links" are NCCL communicators; editing means
 re-making only the affected groups — the planning layer (which groups are
 affected) is identical.
@@ -48,6 +54,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import warnings
 from typing import Dict, FrozenSet, List, Sequence, Set, Tuple
 
 import numpy as np
@@ -167,6 +174,19 @@ class DynamicCommunicator:
         return self._csr
 
     # ---- helpers ----
+    def clone(self) -> "DynamicCommunicator":
+        """Independent copy with the same group table and established links.
+        The scenario engine prices alternatives via :meth:`price`; clone
+        remains for API compatibility."""
+        c = DynamicCommunicator.__new__(DynamicCommunicator)
+        c.groups = {k: list(v) for k, v in self.groups.items()}
+        c.history = []
+        c._ring_cache = dict(self._ring_cache)
+        c._version = 0
+        c._csr = None
+        c._link_codes = set(self._link_codes)
+        return c
+
     def _group_links(self) -> Set[Link]:
         out: Set[Link] = set()
         for name in self.groups:
@@ -267,6 +287,36 @@ class DynamicCommunicator:
         return OpStats("full_rebuild", int(new_codes.size), 0, old_links,
                        n_ranks, secs)
 
+    # ---- deprecated per-mode shims ---------------------------------------
+    def edit(self, remove: Sequence[int] = (),
+             add: Sequence[Tuple[str, int]] = ()) -> OpStats:
+        """Deprecated: use ``apply(GroupDelta(remove, add), "edit")``."""
+        warnings.warn("DynamicCommunicator.edit is deprecated; use "
+                      "apply(GroupDelta(...), 'edit')", DeprecationWarning,
+                      stacklevel=2)
+        return self.apply(GroupDelta(tuple(remove), tuple(add)), "edit")
+
+    def partial_rebuild(self, remove: Sequence[int] = (),
+                        add: Sequence[Tuple[str, int]] = ()) -> OpStats:
+        """Deprecated: use ``apply(GroupDelta(remove, add),
+        "partial_rebuild")``."""
+        warnings.warn("DynamicCommunicator.partial_rebuild is deprecated; "
+                      "use apply(GroupDelta(...), 'partial_rebuild')",
+                      DeprecationWarning, stacklevel=2)
+        return self.apply(GroupDelta(tuple(remove), tuple(add)),
+                          "partial_rebuild")
+
+    def full_rebuild(self, new_groups: Dict[str, List[int]]) -> OpStats:
+        """Deprecated: use ``apply(delta, "full_rebuild")`` (the new-group
+        table is derived from the delta); this shim keeps the seed's explicit
+        new-table signature."""
+        warnings.warn("DynamicCommunicator.full_rebuild is deprecated; use "
+                      "apply(GroupDelta(...), 'full_rebuild')",
+                      DeprecationWarning, stacklevel=2)
+        st = self._full_rebuild({k: list(v) for k, v in new_groups.items()},
+                                commit=True)
+        self.history.append(st)
+        return st
 
 
 def build_hybrid_groups(dp: int, pp: int, tp: int = 1) -> Dict[str, List[int]]:

@@ -110,9 +110,10 @@ def layer_act_footprint(cfg: ModelConfig, layer_idx: int, mbs: int, seq: int,
 class SegmentCosts:
     """Precomputed prefix sums for Alg.1 O(1) segment queries.
 
-    Prefix sums are memoized (computed once, reused by every query); the
-    reference's vectorized ``*_vec`` queries, which only its policies use,
-    are not copied.
+    Prefix sums are memoized (computed once, reused by every scalar *and*
+    vectorized query), and the ``*_vec`` methods accept layer-index arrays so
+    the planners and policies price all P stages in one array op.  Scalar
+    queries keep the seed's exact arithmetic.
     """
     cfg: ModelConfig
     seq: int
@@ -148,6 +149,14 @@ class SegmentCosts:
         c = self._pre(self.fwd_flops)
         return mbs * (c[b + 1] - c[a])
 
+    def seg_fwd_flops_vec(self, a: np.ndarray, b: np.ndarray, mbs) -> np.ndarray:
+        """Vector form of :meth:`seg_fwd_flops` — ``a``/``b``/``mbs`` broadcast;
+        per-element arithmetic identical to the scalar path."""
+        c = self._pre(self.fwd_flops)
+        a = np.asarray(a, dtype=np.int64)
+        b = np.asarray(b, dtype=np.int64)
+        return np.asarray(mbs) * (c[b + 1] - c[a])
+
     def seg_mem(self, a: int, b: int, mbs: int, inflight: int,
                 dp_size: int = 1) -> float:
         """params + ZeRO-sharded optimizer + activations for layers [a..b]."""
@@ -156,6 +165,22 @@ class SegmentCosts:
         acts = sum(layer_act_footprint(self.cfg, i, mbs, self.seq)
                    for i in range(a, b + 1)) * inflight
         return (pb[b + 1] - pb[a]) + (ob[b + 1] - ob[a]) / max(dp_size, 1) + acts
+
+    def seg_mem_vec(self, a: np.ndarray, b: np.ndarray, mbs, inflight,
+                    dp_size=1) -> np.ndarray:
+        """Vector form of :meth:`seg_mem`.  The activation term uses
+        ``count * footprint`` instead of the scalar path's repeated addition
+        (can differ in the last ULP); use only in vectorized contexts — the
+        scalar path stays the comparison oracle."""
+        pb = self._pre(self.param_bytes)
+        ob = self._pre(self.opt_bytes)
+        a = np.asarray(a, dtype=np.int64)
+        b = np.asarray(b, dtype=np.int64)
+        foot = layer_act_footprint(self.cfg, 0, 1, self.seq)  # layer-uniform
+        acts = (b - a + 1) * (foot * np.asarray(mbs)) * np.asarray(inflight)
+        return ((pb[b + 1] - pb[a])
+                + (ob[b + 1] - ob[a]) / np.maximum(np.asarray(dp_size), 1)
+                + acts)
 
 
 def mini_step_time(seg: SegmentCosts, a: int, b: int, mbs: int,
@@ -169,4 +194,24 @@ def mini_step_time(seg: SegmentCosts, a: int, b: int, mbs: int,
     p2p = activation_bytes(seg.cfg, mbs, seg.seq) / (hw.link_bw / max(neighbor_ranks, 1))
     t_f = t_cf + max(0.0, p2p - sigma_f * t_cf)
     t_b = t_cb + max(0.0, p2p - sigma_b * t_cb)
+    return t_f + t_b
+
+
+def mini_step_time_vec(seg: SegmentCosts, a, b, mbs, freq=1.0,
+                       sigma_f: float = 0.7, sigma_b: float = 0.7,
+                       neighbor_ranks=1,
+                       hw: Optional[HardwareSpec] = None) -> np.ndarray:
+    """Eq.(1) over stage vectors: ``a``/``b``/``mbs``/``freq``/
+    ``neighbor_ranks`` broadcast (typically ``[P]`` arrays), one array op for
+    the whole pipeline.  Per-element arithmetic matches the scalar
+    :func:`mini_step_time` exactly (same operation order), so vectorized
+    policies reproduce the per-stage loop bit-for-bit."""
+    hw = hw or seg.hw
+    eff = hw.peak_flops * hw.mfu * np.asarray(freq, dtype=np.float64)
+    t_cf = seg.seg_fwd_flops_vec(a, b, np.asarray(mbs)) / eff
+    t_cb = 2.0 * t_cf
+    p2p = ((np.asarray(mbs) * seg.seq * seg.cfg.d_model * 2)
+           / (hw.link_bw / np.maximum(np.asarray(neighbor_ranks), 1)))
+    t_f = t_cf + np.maximum(0.0, p2p - sigma_f * t_cf)
+    t_b = t_cb + np.maximum(0.0, p2p - sigma_b * t_cb)
     return t_f + t_b

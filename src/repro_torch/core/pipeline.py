@@ -6,14 +6,16 @@ report step time, per-stage bubble, and peak in-flight activation counts.
 The cluster's modeled step time (``simulate_step_time``) and migration
 windows come from it.
 
-A copy of ``simulate_1f1b`` of ``repro.core.pipeline`` (the JAX package),
-plain Python; the reference's interleaved and DP x PP variants, which only
-its benchmarks use, are not copied.
+Supports per-rank *extra* micro-batches (ReCycle rerouting: surviving ranks
+of the failed stage absorb the failed rank's micro-batches, the
+``core.policies`` baselines) and interleaved virtual stages.
+
+A copy of ``repro.core.pipeline`` (the JAX package), plain Python.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 
 @dataclasses.dataclass
@@ -40,7 +42,8 @@ def simulate_1f1b(stages: Sequence[StageTiming],
                   p2p: float = 0.0) -> SimResult:
     """Event-driven 1F1B.  All stages must process the same number of
     micro-batches (standard PP); per-rank load differences enter through
-    fwd/bwd times (micro-batch resizing)."""
+    fwd/bwd times (micro-batch resizing) — see simulate_dp_pp for the DP
+    dimension."""
     P = len(stages)
     M = stages[0].num_micro
     assert all(s.num_micro == M for s in stages)
@@ -105,3 +108,62 @@ def simulate_1f1b(stages: Sequence[StageTiming],
     busy = [stages[i].num_micro * (stages[i].fwd + stages[i].bwd) for i in range(P)]
     bubble = [step_time - b for b in busy]
     return SimResult(step_time, busy, bubble, peak)
+
+
+def simulate_interleaved_1f1b(stages: Sequence[StageTiming], v: int = 2,
+                              p2p: float = 0.0) -> SimResult:
+    """Interleaved 1F1B with `v` virtual stages per physical stage
+    (Megatron-LM interleaving; the schedule family AdaPipe starts from).
+
+    Each physical stage p hosts v model chunks; chunk j of stage p is virtual
+    stage j*P + p.  We simulate the virtual pipeline of depth v*P where each
+    virtual stage costs 1/v of the physical stage's per-micro time, then fold
+    the per-virtual-stage busy/bubble back onto physical stages.  Warmup
+    bubble shrinks by ~1/v at the cost of more P2P messages (modeled via the
+    deeper virtual chain)."""
+    P = len(stages)
+    virt = []
+    for j in range(v):
+        for p in range(P):
+            s = stages[p]
+            virt.append(StageTiming(s.fwd / v, s.bwd / v, s.num_micro))
+    r = simulate_1f1b(virt, p2p=p2p)
+    busy = [0.0] * P
+    peak = [0] * P
+    for idx in range(v * P):
+        p = idx % P
+        busy[p] += r.stage_busy[idx]
+        peak[p] += r.peak_inflight[idx]
+    # Device-sharing bound: the virtual pipeline above lets chunks of the
+    # same physical device overlap; a device must serialize its v chunks, so
+    # step >= busy_p + fill/drain residual (P-1)(f_p + b_p)/v — for balanced
+    # stages this recovers the Megatron interleaved bubble (P-1)/(vM).
+    dev_bound = max(busy[p] + (P - 1) * (stages[p].fwd + stages[p].bwd) / v
+                    + 2 * (P - 1) * p2p
+                    for p in range(P))
+    step = max(r.step_time, dev_bound)
+    bubble = [step - b for b in busy]
+    return SimResult(step, busy, bubble, peak)
+
+
+def simulate_dp_pp(fwd: Sequence[Sequence[float]], bwd: Sequence[Sequence[float]],
+                   num_micro: int, p2p: float = 0.0,
+                   extra_micro: Optional[Dict[Tuple[int, int], int]] = None,
+                   ) -> Tuple[float, List[SimResult]]:
+    """fwd[d][p], bwd[d][p]: per-micro times for DP replica d, stage p.
+    extra_micro[(d, p)]: additional micro-batches rerouted to that rank
+    (ReCycle).  DP replicas run the same schedule; the step ends at the
+    slowest replica (gradient all-reduce joins them), and within a replica a
+    rank with extra micro-batches stretches its stage.
+    Returns (step_time, per-replica SimResult)."""
+    extra_micro = extra_micro or {}
+    results = []
+    for d in range(len(fwd)):
+        stages = []
+        for p in range(len(fwd[d])):
+            extra = extra_micro.get((d, p), 0)
+            scale = (num_micro + extra) / num_micro
+            stages.append(StageTiming(fwd[d][p] * scale, bwd[d][p] * scale,
+                                      num_micro))
+        results.append(simulate_1f1b(stages, p2p=p2p))
+    return max(r.step_time for r in results), results

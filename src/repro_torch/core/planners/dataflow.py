@@ -45,3 +45,12 @@ def plan_dataflow(global_batch: int, num_micro_batches: int,
     plan = DataflowPlan(sizes, num_micro_batches, weights, global_batch)
     plan.validate()
     return plan
+
+
+def plan_dataflow_view(view, new_dp: int = None) -> DataflowPlan:
+    """View-level dataflow resize: the surviving DP width defaults to the
+    narrowest stage of the shared ``ClusterView`` (one reduction — callers
+    stop recounting rank membership)."""
+    if new_dp is None:
+        new_dp = int(view.stage_width().min())
+    return plan_dataflow(view.global_batch, view.num_micro, new_dp)

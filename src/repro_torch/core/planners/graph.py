@@ -72,6 +72,34 @@ def minimax_layer_partition(
     return GraphPlan(tuple(bounds[1:P]), ranges, float(f[P, L]), feasible=True)
 
 
+def plan_graph(seg, view, hw=None) -> GraphPlan:
+    """View-level Alg. 1: derive per-stage widths / micro-batch sizes /
+    straggler factors from a shared :class:`core.clusterview.ClusterView`
+    (one array reduction each) and run the minimax DP.  Callers stop
+    re-deriving rank membership per planner."""
+    from ..cost_model import mini_step_time
+    hw = hw or seg.hw
+    width = view.stage_width()
+    if int(width.min()) == 0:
+        return GraphPlan((), (), INF, feasible=False)
+    per_micro = view.global_batch // view.num_micro
+    mbs_stage = np.ceil(per_micro / width).astype(np.int64)
+    slow_stage = view.stage_slow()
+    P = view.pp
+
+    def t(p, a, b):
+        return mini_step_time(seg, a, b, int(mbs_stage[p]), hw=hw) \
+            * slow_stage[p]
+
+    def mem(p, a, b):
+        return seg.seg_mem(a, b, int(mbs_stage[p]),
+                           inflight=min(P, view.num_micro),
+                           dp_size=int(width[p]))
+
+    return minimax_layer_partition(seg.cfg.num_layers, P, t, mem,
+                                   [view.mem_cap] * P)
+
+
 def brute_force_partition(L: int, P: int, t, mem, caps) -> GraphPlan:
     """Exhaustive oracle (small L, P only)."""
     best: Optional[GraphPlan] = None
@@ -84,3 +112,7 @@ def brute_force_partition(L: int, P: int, t, mem, caps) -> GraphPlan:
         if best is None or worst < best.worst_mini_step:
             best = GraphPlan(tuple(cuts), ranges, worst, feasible=True)
     return best or GraphPlan((), (), INF, feasible=False)
+
+
+def mem_check_fails(L, P, t, mem, caps) -> bool:
+    return not minimax_layer_partition(L, P, t, mem, caps).feasible

@@ -53,15 +53,26 @@ def apply_head(params, cfg: ModelConfig, x):
 
 
 def tiny_config(family: str = "dense", **kw) -> ModelConfig:
-    """Reduced config of a family for CPU tests (the port runs "dense" and
-    "ssm")."""
+    """Reduced config of a family for CPU tests, field for field the
+    reference's.  Every family's config is data for the cost model and the
+    scenario engine; training builds only the blocks the port runs (dense
+    attention and Mamba2): ``transformer.init_block`` raises on the others."""
     base = dict(name=f"tiny-{family}", family=family, num_layers=4, d_model=64,
                 num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=256,
                 rope_theta=10000.0, dtype="float32")
+    if family == "moe":
+        base.update(num_experts=4, top_k=2, moe_d_ff=64, first_k_dense=1)
     if family == "ssm":
         base.update(num_heads=0, num_kv_heads=0, d_ff=0, ssm_state=16,
                     ssm_headdim=16, ssm_chunk=8)
-    elif family != "dense":
-        raise NotImplementedError(f"family {family!r} is not ported yet")
+    if family == "hybrid":
+        base.update(num_layers=4, attn_period=4, attn_layer_offset=0,
+                    ssm_state=16, ssm_headdim=16, ssm_chunk=8,
+                    num_experts=4, top_k=2, moe_d_ff=64, moe_layer_period=2)
+    if family == "audio":
+        base.update(is_encdec=True, encoder_layers=2, decoder_layers=2,
+                    num_layers=2, max_source_positions=32)
+    if family == "vlm":
+        base.update(frontend_embeds=8)
     base.update(kw)
     return ModelConfig(**base)

@@ -157,11 +157,13 @@ def test_params_carry_bf16_leaves_exactly():
 
 
 def test_unported_paths_raise():
-    """MoE still raises; dropout at a positive rate runs (the reference's
+    """Building an MoE block still raises (its config is data, as the
+    reference's); dropout at a positive rate runs (the reference's
     masks, ``test_torch_threefry.py``): kept elements are scaled by
     fl32(1 / fl32(0.9)), the rest are zero."""
+    moe = R.tiny_config("moe")
     with pytest.raises(NotImplementedError):
-        R.tiny_config("moe")
+        R.init_layer(torch.Generator().manual_seed(0), moe, 1)
     cfg = R.tiny_config("dense", dropout_rate=0.1)
     x = torch.ones(2, 8, cfg.d_model)
     from repro_torch.kernels.threefry import fold_in, key_from_seed
