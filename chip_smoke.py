@@ -133,14 +133,35 @@ Phases, in order; any failure exits non-zero and prints no result:
    step, every SSD launch on ``ssd_scan_sm90``, printing step seconds,
    host-snapshot shares and recovery wall clocks; and the phase's wall
    time;
-10. a JSON line with every kernel's numbers (each record's ``shape`` names
+10. the trace fuzzer on the card (``repro_torch.scenarios.fuzz``): kernel
+   seeds 0-11 (tiny dense or ssm: every flash launch on the 3xTF32 route,
+   every SSD launch on the CUDA-core route at p 16, n 16, chunk 8) and
+   cluster seeds 0-7 through ``run_case`` with the default card checkers
+   (the card cluster held to its CPU twin under the kernel-consistency
+   bounds, dataflow, RNG, MTTR), and chaos seeds 0, 1 and 3 through
+   ``run_chaos_case`` (perturbed probes feed the controller; the
+   ``corrupt`` class without the kernel-consistency twin), launch counts
+   exact (``LaunchTally``), the kernel corpus spot check in the first case
+   of each mode only; kernel seed 6's trace (a fail-stop of rank 0, then a
+   fail-slow x1.5 of rank 1; dp 2, pp 1, dropout 0.1) on mamba2-2.7b at
+   its widths in bf16, depth cut to 2 layers, with the dataflow, RNG and
+   MTTR checkers and the ring snapshot equal to the device shards after
+   every event and step, every SSD launch on ``ssd_scan_sm90``, printing
+   step seconds, snapshot shares and recovery wall clocks; the two
+   examples' functions on the card (``examples/torch_quickstart.py`` at its
+   defaults, gated on its loss deviation below 1e-4;
+   ``examples/torch_elastic_train.py`` at its default model for 30 steps,
+   gated on finite losses and two recoveries), launches exact; the
+   detector-only chaos sweep over 150 seeds; and the phase's wall time;
+11. a JSON line with every kernel's numbers (each record's ``shape`` names
    the inputs its times were taken on), one with every recovery's, one
-   with every scenario's, then the result line.
+   with every scenario's, one with every fuzz run's, then the result line.
 """
 from __future__ import annotations
 
 import dataclasses
 import gc
+import importlib.util
 import json
 import math
 import re
@@ -179,7 +200,10 @@ from repro_torch.models.registry import tiny_config  # noqa: E402
 from repro_torch.optim.adam import AdamConfig, adam_update_flat_np  # noqa: E402
 from repro_torch.scenarios import (SCENARIOS, ClusterScenarioRunner,  # noqa: E402
                                    ClusterWorkload, Scenario, get_scenario,
+                                   make_case, make_kernel_case, run_case,
+                                   run_chaos_case, run_detector_chaos,
                                    run_scenario)
+from repro_torch.scenarios.fuzz import default_chaos_checkers  # noqa: E402
 from repro_torch.weights import params_to_numpy  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -2147,6 +2171,231 @@ def phase_scenarios() -> tuple:
     return paths, records, phase_s
 
 
+# phase 10: the fuzz seeds run on the card, by mode
+FUZZ_SEEDS = {"kernel": range(12), "cluster": range(8), "chaos": (0, 1, 3)}
+# the tiny fuzz configurations' mixer route and dropouts a layer: float32
+# dense at head_dim 16 on the 3xTF32 flash route (attention and MLP
+# dropouts), float32 ssm at p 16, n 16, chunk 8 on the CUDA-core SSD route
+# (the Mamba2 block's one dropout)
+FUZZ_ROUTES = {"dense": ("flash_attention_tf32", 2), "ssm": ("ssd_scan", 1)}
+# the full-width fuzz trace: kernel seed 6 (ssm, dp 2, pp 1, dropout 0.1: a
+# fail-stop of rank 0 at step 1, a fail-slow x1.5 of rank 1 at step 2)
+FUZZ_TRACE_SEED = 6
+EXAMPLES = Path(__file__).resolve().parent / "examples"
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (the examples are scripts)."""
+    spec = importlib.util.spec_from_file_location(name, EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def tallied(route: str, dropout_ops: int, fn):
+    """Runs ``fn()`` with every ``VirtualCluster.train_step`` feeding a
+    ``LaunchTally``; the counts start at 0.  Returns ``fn``'s result and
+    the launches, checked exact."""
+    tally = LaunchTally(route, dropout_ops)
+    step = VirtualCluster.train_step
+
+    def counted(self):
+        loss = step(self)
+        tally.after_cluster_step(self.step_count - 1, self, loss)
+        return loss
+
+    _build.reset_launch_counts()
+    VirtualCluster.train_step = counted
+    try:
+        out = fn()
+    finally:
+        VirtualCluster.train_step = step
+    return out, tally.check_counts(f"{fn.__name__}")
+
+
+def fuzz_case(mode: str, seed: int, spot_check: bool) -> tuple:
+    """One fuzz case on the card with the default checkers (chaos: those of
+    ``default_chaos_checkers``) and a ``LaunchTally``; the kernel corpus
+    spot check only where ``spot_check``.  Returns its record and its
+    launches."""
+    case = make_case(mode, seed)
+    w = case.workload
+    check(w.device is None, f"fuzz {mode} {seed}: device {w.device!r}")
+    route, drops = FUZZ_ROUTES[w.family]
+    checkers = (default_chaos_checkers(case) if mode == "chaos"
+                else default_cluster_checkers(device=w.device))
+    for c in checkers:
+        if isinstance(c, KernelConsistencyChecker):
+            c.spot_check = spot_check
+    names = [c.name for c in checkers]
+    tally = LaunchTally(route, drops)
+    t0 = time.perf_counter()
+    if mode == "chaos":
+        cl = run_chaos_case(case, checkers=[*checkers, tally])
+        losses, n_rec = [float(x) for x in cl.losses], len(cl.recoveries)
+        width = int(min(cl.alive[:, p].sum() for p in range(cl.pp)))
+        events = [f"step={a.step} {a.kind} rank={a.rank}"
+                  for a in case.actions]
+        del cl
+    else:
+        res = run_case(case, checkers=[*checkers, tally])
+        losses, n_rec = res.summary["losses"], len(res.recoveries)
+        width = res.steps[-1]["dp_width"]
+        events = [e.describe() for e in case.scenario.events]
+        del res
+    wall = time.perf_counter() - t0
+    counts = tally.check_counts(f"fuzz {mode} {seed}")
+    check(counts[route] > 0, f"fuzz {mode} {seed}: no {route} launch")
+    check((counts["threefry_dropout"] > 0) == (w.dropout_rate > 0),
+          f"fuzz {mode} {seed}: dropout launches {counts}")
+    check(all(math.isfinite(x) for x in losses),
+          f"fuzz {mode} {seed}: losses {losses}")
+    check(("kernel-consistency" in names)
+          == (getattr(case, "chaos_class", None) != "corrupt"),
+          f"fuzz {mode} {seed}: checkers {names}")
+    rec = dict(mode=mode, seed=seed, family=w.family, dp=w.dp, pp=w.pp,
+               dropout=w.dropout_rate, events=events,
+               chaos_class=getattr(case, "chaos_class", None),
+               checkers=names, spot_check=spot_check, losses=losses,
+               n_recoveries=n_rec, final_dp_width=width, wall_s=wall,
+               launches={k: v for k, v in counts.items() if v})
+    log(f"fuzz {mode} {seed} ({w.family}, dp {w.dp}, pp {w.pp}, dropout "
+        f"{w.dropout_rate}{', ' + rec['chaos_class'] if rec['chaos_class'] else ''}"
+        f"; corpus spot check {'on' if spot_check else 'off'}): events "
+        f"{events}; losses {[round(x, 6) for x in losses]}; {n_rec} "
+        f"recoveries, final dp width {width}; launches {rec['launches']}; "
+        f"wall {wall:.1f} s; checkers {names} passed")
+    return rec, counts
+
+
+def fuzz_trace() -> tuple:
+    """Kernel seed 6's trace on mamba2-2.7b at full width (bf16, depth cut
+    to the case's 2 layers, dp 2, pp 1, dropout 0.1, seq 4096, global
+    batch 4 in 2 micro-batches): dataflow, RNG, MTTR, the ring gate and the
+    launch tally; no CPU twin."""
+    case = make_kernel_case(FUZZ_TRACE_SEED)
+    cw = case.workload
+    w = Mamba2TraceWorkload(num_layers=cw.num_layers, dp=cw.dp, pp=cw.pp,
+                            dropout_rate=cw.dropout_rate, seed=cw.seed,
+                            rng_mode=cw.rng_mode)
+    scn = Scenario(f"fuzz-kernel-{FUZZ_TRACE_SEED} (mamba2-2.7b)",
+                   case.scenario.events, case.scenario.horizon)
+    gate = RingGate()
+    tally = LaunchTally("ssd_scan_sm90", FUZZ_ROUTES["ssm"][1])
+    t0 = time.perf_counter()
+    res = ClusterScenarioRunner(scn, w, checkers=[
+        DataflowConsistencyChecker(), RngConsistencyChecker(),
+        MttrBoundChecker(), gate, tally]).run()
+    wall = time.perf_counter() - t0
+    counts = tally.check_counts(scn.name)
+    check(counts["threefry_dropout"] > 0 and counts["ssd_scan"] == 0,
+          f"{scn.name}: launches {counts}")
+    losses = res.summary["losses"]
+    check(all(math.isfinite(x) for x in losses), f"{scn.name}: {losses}")
+    widths = [s["dp_width"] for s in res.steps]
+    check(widths == [2, 1, 1], f"{scn.name}: widths {widths}")
+    shares = [sn / st for sn, st in zip(gate.snapshot_s, gate.step_s)]
+    for k, (loss, st, sh) in enumerate(zip(losses, gate.step_s, shares)):
+        log(f"{scn.name} step {k}: loss {loss:.6f} ({loss!r}) step_s "
+            f"{st:.3f} snapshot share {sh:.3f}")
+    for r, sec in zip(res.recoveries, gate.recovery_s):
+        log(f"{scn.name} {r['kind']} {r['ranks']} at step {r['step']}: wall "
+            f"{sec:.3f} s; record (modeled, plan measured) {r['mttr']}")
+    log(f"{scn.name}: events {[e.describe() for e in scn.events]}; "
+        f"launches {counts}; ring == device after every event and step; "
+        f"wall {wall:.1f} s")
+    rec = dict(mode="kernel trace", seed=FUZZ_TRACE_SEED, name=scn.name,
+               events=[e.describe() for e in scn.events], losses=losses,
+               widths=widths, wall_s=wall, step_s=gate.step_s,
+               snapshot_share=shares, recovery_wall_s=gate.recovery_s,
+               recoveries=[dict(kind=r["kind"], ranks=r["ranks"],
+                                step=r["step"], mttr=r["mttr"])
+                           for r in res.recoveries],
+               launches={k: v for k, v in counts.items() if v})
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, counts
+
+
+def phase_fuzz() -> tuple:
+    """Phase 10, the trace fuzzer on the card: ``FUZZ_SEEDS`` with the
+    default card checkers, kernel seed 6's trace at full width, the two
+    examples, the detector-only chaos sweep.  Returns the launches by path,
+    one record per run and the phase's wall time."""
+    t_phase = time.perf_counter()
+    paths, records = {}, []
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)        # the CPU twins' tensors are tiny
+    try:
+        for mode, seeds in FUZZ_SEEDS.items():
+            total = dict.fromkeys(_build.LAUNCHES, 0)
+            for i, seed in enumerate(seeds):
+                rec, counts = fuzz_case(mode, seed, spot_check=i == 0)
+                records.append(rec)
+                for k, v in counts.items():
+                    total[k] += v
+            log(f"fuzz {mode} seeds {list(seeds)}: corpus spot check in seed "
+                f"{seeds[0]} only; launches {total}")
+            paths[f"fuzz {mode} seeds {', '.join(map(str, seeds))} (tiny)"] \
+                = total
+    finally:
+        torch.set_num_threads(threads)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec, paths[f"fuzz kernel {FUZZ_TRACE_SEED} trace (mamba2-2.7b)"] = \
+        fuzz_trace()
+    records.append(rec)
+
+    t0 = time.perf_counter()
+    quick, counts = tallied(FUZZ_ROUTES["dense"][0], FUZZ_ROUTES["dense"][1],
+                            load_example("torch_quickstart").quickstart)
+    wall = time.perf_counter() - t0
+    check(quick["deviation"] < 1e-4,
+          f"torch_quickstart: deviation {quick['deviation']!r}")
+    check(all(math.isfinite(x) for x in quick["losses"]),
+          f"torch_quickstart: losses {quick['losses']}")
+    log(f"torch_quickstart (card): deviation {quick['deviation']!r} < 1e-4; "
+        f"launches {counts}; wall {wall:.1f} s")
+    paths["examples/torch_quickstart.py"] = counts
+    records.append(dict(mode="example", name="torch_quickstart",
+                        base_losses=quick["base_losses"],
+                        losses=quick["losses"],
+                        deviation=quick["deviation"], wall_s=wall,
+                        launches={k: v for k, v in counts.items() if v}))
+
+    def elastic_train_30():
+        return load_example("torch_elastic_train").elastic_train(steps=30)
+
+    t0 = time.perf_counter()
+    el, counts = tallied(FUZZ_ROUTES["dense"][0], FUZZ_ROUTES["dense"][1],
+                         elastic_train_30)
+    wall = time.perf_counter() - t0
+    check(len(el["losses"]) == 30
+          and all(math.isfinite(x) for x in el["losses"]),
+          f"torch_elastic_train: losses {el['losses']}")
+    check(len(el["recoveries"]) == 2 and all(el["recoveries"]),
+          f"torch_elastic_train: recoveries {el['recoveries']}")
+    log(f"torch_elastic_train (card, 30 steps): launches {counts}; wall "
+        f"{wall:.1f} s")
+    paths["examples/torch_elastic_train.py (30 steps)"] = counts
+    records.append(dict(mode="example", name="torch_elastic_train",
+                        losses=el["losses"],
+                        recoveries=[{k: float(v) for k, v in r.items()}
+                                    for r in el["recoveries"]],
+                        wall_s=wall,
+                        launches={k: v for k, v in counts.items() if v}))
+
+    t0 = time.perf_counter()
+    for seed in range(150):
+        run_detector_chaos(seed)
+    log(f"run_detector_chaos: seeds 0-149 passed in "
+        f"{time.perf_counter() - t0:.2f} s")
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 10 (trace fuzzer on the card): {phase_s:.1f} s")
+    return paths, records, phase_s
+
+
 def main() -> None:
     card = phase_device()
     pipes = phase_build()
@@ -2263,6 +2512,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     scenario_paths, scenarios, scenario_s = phase_scenarios()
     paths.update(scenario_paths)
+    fuzz_paths, fuzz_runs, fuzz_s = phase_fuzz()
+    paths.update(fuzz_paths)
     kernels = [dict(name=name, route="cuda", source=SOURCES[name][0],
                     replaces=SOURCES[name][1],
                     launches=sum(p[name] for p in paths.values()),
@@ -2296,6 +2547,7 @@ def main() -> None:
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"recoveries": recoveries}))
     log(json.dumps({"scenarios": scenarios, "phase_s": scenario_s}))
+    log(json.dumps({"fuzz": fuzz_runs, "phase_s": fuzz_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,9 +4,10 @@ Declarative scenario specs (:mod:`.spec`), a two-mode runner (:mod:`.runner`
 — numeric ``VirtualCluster`` on the card or the CPU / analytic policy
 evaluation), a shared JSON metrics schema (:mod:`.metrics`) and a library of
 named scenarios (:mod:`.library`), as ``repro.scenarios`` (the JAX package)
-has them.  Its fuzzer (``fuzz``: random legal traces, kernel-mode and
-detection-chaos cases) and its serving runner (``serve``) are not ported
-yet; they wait for the port's fuzzer and its serving plane.
+has them, and the trace fuzzer (:mod:`.fuzz`: random legal traces in
+analytic, cluster and kernel modes, the shrinker, detection-chaos cases and
+the detector-only sweep).  The serving runner (``serve``) is not ported
+yet; it waits for the port's serving plane.
 
 Quick use::
 
@@ -19,6 +20,11 @@ Quick use::
 """
 from repro_torch.core.clusterview import ClusterView, FailureDomainMap, GroupDelta
 
+from .fuzz import (CHAOS_CLASSES, ChaosCase, DetectionChaosRunner, FuzzCase,
+                   POLICY_NAMES, make_analytic_case, make_case,
+                   make_chaos_case, make_cluster_case, make_kernel_case,
+                   make_policy, run_case, run_chaos_case, run_detector_chaos,
+                   shrink_case, trace_is_legal)
 from .library import SCENARIOS, get_scenario
 from .metrics import MetricsCollector, ScenarioResult
 from .runner import (AnalyticScenarioRunner, ClusterScenarioRunner,
@@ -27,9 +33,13 @@ from .spec import (AnalyticWorkload, ClusterWorkload, Scenario,
                    node_shrink_cells, validate_event_legality)
 
 __all__ = [
-    "AnalyticScenarioRunner", "AnalyticWorkload", "ClusterScenarioRunner",
-    "ClusterView", "ClusterWorkload", "FailureDomainMap", "GroupDelta",
-    "MetricsCollector", "SCENARIOS", "Scenario", "ScenarioResult",
-    "get_scenario", "node_shrink_cells", "run_scenario",
+    "AnalyticScenarioRunner", "AnalyticWorkload", "CHAOS_CLASSES",
+    "ChaosCase", "ClusterScenarioRunner", "ClusterView", "ClusterWorkload",
+    "DetectionChaosRunner", "FailureDomainMap", "FuzzCase", "GroupDelta",
+    "MetricsCollector", "POLICY_NAMES", "SCENARIOS", "Scenario",
+    "ScenarioResult", "get_scenario", "make_analytic_case", "make_case",
+    "make_chaos_case", "make_cluster_case", "make_kernel_case", "make_policy",
+    "node_shrink_cells", "run_case", "run_chaos_case", "run_detector_chaos",
+    "run_scenario", "shrink_case", "trace_is_legal",
     "validate_event_legality",
 ]

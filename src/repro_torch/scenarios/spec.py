@@ -167,7 +167,7 @@ def validate_event_legality(events: Sequence[ElasticEvent],
     SCALE_IN) of a rank that is already dead.  FAIL_SLOW / DVFS_SET / MIGRATE
     do not alter liveness (repeats are legal).  Grid-shape rules (never kill
     a stage's last replica) need dp x pp and live in the fuzzer's
-    ``trace_is_legal`` (``repro.scenarios.fuzz``; not ported yet).
+    ``trace_is_legal`` (``repro_torch.scenarios.fuzz``).
     """
     dead: set = set()
     for e in events:

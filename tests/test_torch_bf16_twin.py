@@ -27,6 +27,7 @@ from repro.core.invariants import KernelConsistencyChecker as KCC  # noqa: E402
 from repro.models.registry import tiny_config as j_tiny  # noqa: E402
 from repro_torch.core.cluster import VirtualCluster  # noqa: E402
 from repro_torch.models.registry import tiny_config  # noqa: E402
+from _torch_threads import torch_one_thread  # noqa: E402,F401
 
 #: the bf16 twins' bound (see the module docstring); chip_smoke.py declares
 #: the same for the card against this CPU path

@@ -17,6 +17,7 @@ from repro.core.invariants import KernelConsistencyChecker as KCC  # noqa: E402
 from repro.models.registry import tiny_config as j_tiny  # noqa: E402
 from repro_torch.core.cluster import VirtualCluster  # noqa: E402
 from repro_torch.models.registry import tiny_config  # noqa: E402
+from _torch_threads import torch_one_thread  # noqa: E402,F401
 
 KW = dict(global_batch=8, num_micro=2, seq_len=16)
 STEPS = 3

@@ -27,6 +27,7 @@ from repro_torch.models import registry as R  # noqa: E402
 from repro_torch.models.layers import RngCtx  # noqa: E402
 from repro_torch.weights import params_from_numpy  # noqa: E402
 from test_torch_recovery import SEQUENCE, run_twin, tiers  # noqa: E402,F401
+from _torch_threads import torch_one_thread  # noqa: E402,F401
 
 RATE = 0.1
 KW = dict(global_batch=8, num_micro=2, seq_len=16)

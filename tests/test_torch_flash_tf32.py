@@ -28,6 +28,7 @@ import torch  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from _torch_threads import torch_one_thread  # noqa: E402,F401
 
 BLOCK_M, BLOCK_N, GROUP = 128, 32, 2
 TIER = ops.TOLERANCE_TIERS["flash_attention"]

@@ -1,6 +1,7 @@
-"""The port stands alone: it imports neither jax nor the JAX package, its
-entry points default to the card, and no kernel wrapper hands a CUDA tensor
-to its plain version."""
+"""The port stands alone: it, its chip smoke, its examples and its fuzz
+soak script import neither jax nor the JAX package, its entry points (a
+drawn fuzz workload's cluster too) default to the card, and no kernel
+wrapper hands a CUDA tensor to its plain version."""
 import os
 import subprocess
 import sys
@@ -12,6 +13,7 @@ import torch
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.core.cluster import VirtualCluster
 from repro_torch.models.registry import tiny_config
+from repro_torch.scenarios import make_case
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -25,6 +27,12 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     __import__(name)
 import chip_smoke
+import importlib.util
+for path in ("examples/torch_quickstart.py", "examples/torch_elastic_train.py",
+             "benchmarks/torch_fuzz_soak.py"):
+    spec = importlib.util.spec_from_file_location(path.replace("/", "_"),
+                                                  path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(k for k in sys.modules
              if k in ("jax", "repro") or k.startswith(("jax.", "repro.")))
 print(len(names), bad)
@@ -46,6 +54,15 @@ def test_cluster_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         VirtualCluster(tiny_config("dense", num_layers=2), 2, 2,
                        global_batch=8, num_micro=2, seq_len=16)
+
+
+@pytest.mark.parametrize("mode", ["cluster", "kernel", "chaos"])
+def test_fuzz_workloads_default_to_the_card(mode, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    w = make_case(mode, 6).workload
+    assert w.device is None
+    with pytest.raises(RuntimeError, match="CUDA"):
+        w.make_cluster()
 
 
 def _fake_card(monkeypatch):

@@ -34,6 +34,7 @@ from repro_torch.core.events import (ElasticEvent as TEvent,  # noqa: E402
                                      EventKind as TKind)
 from repro_torch.core.fabric.snapshot import SnapshotPool as TPool  # noqa: E402
 from repro_torch.models.registry import tiny_config as t_tiny  # noqa: E402
+from _torch_threads import torch_one_thread  # noqa: E402,F401
 
 COMPONENTS = ("master", "mu", "nu")
 

@@ -22,7 +22,6 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
 
 jax = pytest.importorskip("jax")
 
@@ -35,6 +34,7 @@ from repro_torch.core.invariants import (  # noqa: E402
     DataflowConsistencyChecker, MttrBoundChecker, RngConsistencyChecker)
 from repro_torch.scenarios import (ClusterScenarioRunner,  # noqa: E402
                                    ClusterWorkload, get_scenario)
+from _torch_threads import torch_one_thread  # noqa: E402,F401
 
 
 def _pin_planner_clock(cl):
@@ -75,15 +75,6 @@ class PortWorkload(ClusterWorkload):
 
 @pytest.mark.parametrize("name", ["concurrent_burst", "shrink_regrow"])
 def test_library_scenario_matches_reference(name):
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)        # tiny tensors: no gain from more
-    try:
-        _compare_with_reference(name)
-    finally:
-        torch.set_num_threads(threads)
-
-
-def _compare_with_reference(name):
     j_scn, j_w = j_get(name)
     scn, w = get_scenario(name)
     assert scn.describe() == j_scn.describe()
