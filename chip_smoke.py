@@ -54,7 +54,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    bf16 mma.sync route with the CUDA-core kernel too; each SSD
    route beside
    the CUDA-core kernel and ``ref.ssd_chunked`` in the same dtype,
-   composed of cuBLAS products); the content-addressed dropout kernel:
+   composed of cuBLAS products); each SSD route's final state (the
+   prefill's: bf16 and float32 tensor-core routes at mamba2's widths, one
+   chunk and eight; the CUDA-core kernel at the tiny widths, one chunk and
+   25, and at mamba2's) against the oracle's state and a float64 witness,
+   y bitwise the same with the state asked for, and each tensor-core
+   route's training launch timed beside its launch with the state; the
+   content-addressed dropout kernel:
    threefry2x32's known answers on the host and on the card, then bit for
    bit against its plain version, output, gradient and mask, in float32
    and bf16 at rates 0.1 and 0.5, at [1, 4096, 4096] (codeqwen's
@@ -90,11 +96,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    and [4096, 5120], against their plain versions;
 5. the dense main path: ``VirtualCluster.train_step`` on codeqwen1.5-7b at
    its published widths and dtype, depth cut to 2 layers, dp=2, pp=2, seq
-   4096, for 2 steps, with exact kernel launch counts (every flash launch
-   on the tensor-core route) and the host ring snapshot bitwise equal to
-   the device shards after every step; then the same model at dropout 0.1
-   (``rng_mode="reshard"``) for 2 steps, every dropout forward and backward
-   on the dropout kernel (64 launches), its second step under
+   4096, at dropout 0.1 (``rng_mode="reshard"``; the same path without
+   dropout was cut for phase 11's time), for 2 steps, with exact kernel
+   launch counts (every flash launch on the tensor-core route, every
+   dropout forward and backward on the dropout kernel: 64 launches) and
+   the host ring snapshot bitwise equal to the device shards after every
+   step, its second step under
    ``torch.profiler``: device time by kind (each hand-written kernel,
    cuBLAS products, other ATen kernels, memcpy by direction) and the
    device-busy share from the step's start to the snapshot's;
@@ -153,9 +160,31 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``examples/torch_elastic_train.py`` at its default model for 30 steps,
    gated on finite losses and two recoveries), launches exact; the
    detector-only chaos sweep over 150 seeds; and the phase's wall time;
-11. a JSON line with every kernel's numbers (each record's ``shape`` names
+11. the serving plane (``repro_torch.serving``): the tiny dense (3xTF32
+   flash route) and ssm (CUDA-core SSD route, ragged prefills) engines on
+   the card beside CPU twins of the port from the same weights, greedy and
+   top-k, undisturbed, a SCALE_IN after two decode ticks (migration), a
+   FAIL_STOP (rebuild) and the drop policy: stats, event logs, summaries
+   and streams equal, logits within the kernel-consistency bounds, SCALE_IN
+   streams equal to the undisturbed run's; then codeqwen1.5-7b (32 layers,
+   8.19 B params) and mamba2-2.7b (64 layers, 2.70 B) at their published
+   widths and depth in bf16, random weights, 2 replicas x 4 slots, 8
+   requests of 1024 prompt and 64 new tokens (four arriving after the
+   event): greedy undisturbed, greedy and top-k (temperature 0.7, top_k 40)
+   with a SCALE_IN of replica 0 after two decode ticks, every in-flight
+   request migrated with zero drops, the migrated slots bitwise their
+   source, the streams the undisturbed run's; the engine's logits against
+   a full-sequence forward (held for codeqwen, printed for mamba2, whose
+   random 64 layers amplify rounding: see ``SERVE_LOGIT_RTOL``), every
+   block decoding from the forward's inputs in float32 (held), and the
+   drift of a width-1 decode from the engine's width-4 one; prefill ms,
+   decode ms a batched step, tokens/s, migration wall seconds, KV bytes
+   moved, peak device memory; launches exact; then ``launch/serve.py
+   --smoke`` and ``examples/torch_serve.py``;
+12. a JSON line with every kernel's numbers (each record's ``shape`` names
    the inputs its times were taken on), one with every recovery's, one
-   with every scenario's, one with every fuzz run's, then the result line.
+   with every scenario's, one with every fuzz run's, one with the serving
+   phase's, then the result line.
 """
 from __future__ import annotations
 
@@ -196,7 +225,11 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
     uses_sm90_f32 as ssd_uses_sm90_f32)
 from repro_torch.kernels import threefry  # noqa: E402
 from repro_torch.kernels.threefry import threefry_dropout_cuda  # noqa: E402
-from repro_torch.models.registry import tiny_config  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.models import registry as R  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.layers import RngCtx  # noqa: E402
+from repro_torch.models.registry import ServingHooks, tiny_config  # noqa: E402
 from repro_torch.optim.adam import AdamConfig, adam_update_flat_np  # noqa: E402
 from repro_torch.scenarios import (SCENARIOS, ClusterScenarioRunner,  # noqa: E402
                                    ClusterWorkload, Scenario, get_scenario,
@@ -204,7 +237,9 @@ from repro_torch.scenarios import (SCENARIOS, ClusterScenarioRunner,  # noqa: E4
                                    run_chaos_case, run_detector_chaos,
                                    run_scenario)
 from repro_torch.scenarios.fuzz import default_chaos_checkers  # noqa: E402
-from repro_torch.weights import params_to_numpy  # noqa: E402
+from repro_torch.serving import (SLO, DropPolicy, Request,  # noqa: E402
+                                 SamplerConfig, ServingEngine)
+from repro_torch.weights import params_from_numpy, params_to_numpy  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -2396,6 +2431,578 @@ def phase_fuzz() -> tuple:
     return paths, records, phase_s
 
 
+# ---------------------------------------------------------------------------
+# phase 3, SSD tier: the final state each route returns for a prefill
+# ---------------------------------------------------------------------------
+# (route, dtype, h, p, n, chunk, s, regime): mamba2-2.7b's widths on both
+# tensor-core routes, one chunk (no state pass before this PR) and eight;
+# the tiny ssm configurations' widths (p 16, n 16, chunk 8) on the CUDA-core
+# kernel, one chunk and 25 (4 groups of 8 chunks, the last short); and the
+# CUDA-core kernel at mamba2's widths (its chunk > 64 path)
+SSD_FINAL_CASES = [
+    ("ssd_scan_sm90", torch.bfloat16, 80, 64, 128, 256, 256, "typical"),
+    ("ssd_scan_sm90", torch.bfloat16, 80, 64, 128, 256, 2048, "typical"),
+    ("ssd_scan_sm90", torch.bfloat16, 80, 64, 128, 256, 2048, "carried"),
+    ("ssd_scan_sm90_f32", torch.float32, 80, 64, 128, 256, 256, "carried"),
+    ("ssd_scan_sm90_f32", torch.float32, 80, 64, 128, 256, 2048, "carried"),
+    ("ssd_scan", torch.float32, 8, 16, 16, 8, 8, "carried"),
+    ("ssd_scan", torch.float32, 8, 16, 16, 8, 200, "carried"),
+    ("ssd_scan", torch.bfloat16, 80, 64, 128, 256, 2048, "carried"),
+]
+
+
+def kernel_ssd_final_state(gen) -> dict:
+    """Each SSD route's final state (``final_state=True``) against the
+    sequential oracle's, silu-activated views of one xBC as in the model, g
+    1: within the route's tier of the float32 oracle elementwise, and of
+    the float64 witness scaled by the state's terms (the oracle's state on
+    |x|, |B|, |C|), as the signed y cases are held.  y with the state asked
+    for is bitwise the y without.  Then the training launch (no state) and
+    the prefill launch (the state) of each tensor-core route timed
+    interleaved at [1, 4096, 80, 64].  Returns {route: record}."""
+    out = {}
+    for route, dtype, h, p, n, chunk, s, regime in SSD_FINAL_CASES:
+        f32 = dtype == torch.float32
+        tier_name = "ssd_scan" if f32 else "ssd_scan_bf16"
+        tier = ops.TOLERANCE_TIERS[tier_name]
+        xBC = F.silu(torch.randn(1, s, h * p + 2 * n, generator=gen,
+                                 device="cuda")).to(dtype)
+        x = xBC[..., :h * p].reshape(1, s, h, p)
+        B = xBC[..., h * p:h * p + n].reshape(1, s, 1, n)
+        C = xBC[..., h * p + n:].reshape(1, s, 1, n)
+        if regime == "typical":
+            dt = F.softplus(torch.randn(1, s, h, generator=gen,
+                                        device="cuda"))
+            A = -torch.linspace(1.0, 16.0, h, device="cuda")
+        else:
+            dt = 1e-3 + (1e-1 - 1e-3) * torch.rand(1, s, h, generator=gen,
+                                                   device="cuda")
+            A = -(0.05 + 0.95 * torch.rand(h, generator=gen, device="cuda"))
+        run = ssd_scan_cuda_cores if route == "ssd_scan" else ssd_scan_cuda
+        before = _build.LAUNCHES[route]
+        y, fin = run(x, dt, A, B, C, chunk, True)
+        y0 = run(x, dt, A, B, C, chunk)
+        check(_build.LAUNCHES[route] == before + 2,
+              f"final state: {route} not launched")
+        check(torch.equal(y, y0), f"{route}: y changes when the final "
+                                  f"state is asked for")
+        Bh, Ch = (t.repeat_interleave(h, dim=2) for t in (B, C))
+        want = ref.ssd_reference(x, dt, A, Bh, Ch)[1]
+        d = [t.double() for t in (x, dt, A, Bh, Ch)]
+        st64 = ref.ssd_reference(*d)[1]
+        terms = ref.ssd_reference(d[0].abs(), d[1], d[2], d[3].abs(),
+                                  d[4].abs())[1]
+        ok, err = within(fin, want, tier)
+        e64 = (fin.double() - st64).abs()
+        witness = bool((e64 <= tier["atol"] + tier["rtol"] * terms).all())
+        name = (f"final state {route} {str(dtype)[6:]} [1, {s}, {h}, {p}] "
+                f"n {n} chunk {chunk} ({s // chunk} chunks) {regime}")
+        log(f"{name}: max_abs_err {err:.3e} vs the float32 oracle (max "
+            f"|state| {float(want.abs().max()):.3e}), {float(e64.max()):.3e} "
+            f"vs float64; tier {tier_name} ok={ok}, witness ok={witness}")
+        check(ok and witness, f"{name} outside {tier_name}")
+        rec = out.setdefault(route, {"final_state_cases": []})
+        rec["final_state_cases"].append(dict(
+            case=name, max_abs_err=err, max_abs_err_float64=float(e64.max())))
+        del xBC, x, B, C, Bh, Ch, y, y0, fin, want, d, st64, terms, e64
+    b, s, h, p, n, chunk = 1, 4096, 80, 64, 128, 256
+    for route, dtype in (("ssd_scan_sm90", torch.bfloat16),
+                         ("ssd_scan_sm90_f32", torch.float32)):
+        xBC = F.silu(torch.randn(b, s, h * p + 2 * n, generator=gen,
+                                 device="cuda")).to(dtype)
+        x = xBC[..., :h * p].reshape(b, s, h, p)
+        B = xBC[..., h * p:h * p + n].reshape(b, s, 1, n)
+        C = xBC[..., h * p + n:].reshape(b, s, 1, n)
+        dt = F.softplus(torch.randn(b, s, h, generator=gen, device="cuda"))
+        A = -torch.linspace(1.0, 16.0, h, device="cuda")
+        med = interleaved_medians(
+            {"training": lambda: ssd_scan_cuda(x, dt, A, B, C, chunk),
+             "final state": lambda: ssd_scan_cuda(x, dt, A, B, C, chunk,
+                                                  True)}, 5, 10)
+        log(f"{route} [1, 4096, 80, 64] ms: training launch (no state) "
+            f"{med['training']:.4f}, with the final state "
+            f"{med['final state']:.4f} (medians of 5 interleaved rounds of "
+            f"10)")
+        out[route].update(training_ms=med["training"],
+                          final_state_ms=med["final state"])
+        del xBC, x, B, C, dt
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the serving plane
+# ---------------------------------------------------------------------------
+SERVE_TINY = dict(num_layers=2, dropout_rate=0.0)
+SERVE_SAMPLERS = {"greedy": SamplerConfig(),
+                  "top-k": SamplerConfig(method="topk", temperature=0.7,
+                                         top_k=8, seed=3)}
+SERVE_FULL_TOPK = SamplerConfig(method="topk", temperature=0.7, top_k=40,
+                                seed=0)
+# the engine-vs-full-forward logits bound of the full-width runs, declared
+# before their first run: the bf16 tiers' rtol (ops.TOLERANCE_TIERS, 1e-2:
+# one rounding to bf16) for each of the 65 residual branches and the head
+# (2L + 1 at codeqwen's 32 layers, L + 1 at mamba2's 64), their independent
+# errors adding as a random walk; per row, max |a - b| <= SERVE_LOGIT_RTOL
+# * max |b| + atol.  The random 64-layer mamba2 amplifies rounding itself
+# (on an H100, PERF.md §6: one decode step from the same history 9% off
+# the forward in bf16, 9.6e-4 after 50 steps in float32; two decodes that
+# differ only in cuBLAS's batch width as far apart), so its whole-model
+# logits are printed; every block of both models is held in float32
+# (SERVE_BLOCK_TIERS)
+SERVE_BF16 = ops.TOLERANCE_TIERS["flash_attention_bf16"]
+SERVE_LOGIT_RTOL = SERVE_BF16["rtol"] * math.sqrt(65)
+# each block, its weights in float32, decoding a step at a time from the
+# bf16 forward's residual stream at its input, against its float32
+# full-sequence forward from the same inputs: no error crosses a block or
+# a step; per row of the block's output, max |a - b| <= rtol * max |b| +
+# atol at the float32 tier of the block's kernel (in bf16 the block
+# outputs land up to two ulps apart, 1.19% of a row's max on an H100, so
+# bf16 rounding, not the decode, would set a bf16 bound)
+SERVE_BLOCK_TIERS = {"dense": ops.TOLERANCE_TIERS["flash_attention"],
+                     "ssm": ops.TOLERANCE_TIERS["ssd_scan"]}
+
+
+def serve_route(cfg) -> str:
+    """The kernel a prefill of ``cfg`` launches once a layer (prompts of at
+    least ``ssm_chunk`` tokens)."""
+    dt = cfg.torch_dtype
+    if cfg.family == "dense":
+        return "flash_attention_sm90" if uses_sm90(dt, cfg.head_dim) \
+            else "flash_attention_bf16_mma" if uses_bf16_mma(dt, cfg.head_dim) \
+            else "flash_attention_tf32"
+    p, n, c = cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk
+    return "ssd_scan_sm90" if ssd_uses_sm90(dt, p, n, c) \
+        else "ssd_scan_sm90_f32" if ssd_uses_sm90_f32(dt, p, n, c) \
+        else "ssd_scan"
+
+
+def serve_launches(eng: ServingEngine) -> dict:
+    """The launches an engine's run must have made, from its prefills and
+    batched decode steps: each prefill one flash (dense) or SSD (ssm)
+    launch a layer, each prefill and batched decode step 2L+1 rmsnorm
+    launches (dense: ln1 and ln2 a layer; ssm: ln1 and out_norm), the
+    final norm included."""
+    cfg = eng.cfg
+    prefills = sum(r.prefills for r in eng.requests.values())
+    want = {k: 0 for k in _build.LAUNCHES}
+    want["rmsnorm"] = (2 * cfg.num_layers + 1) * (prefills + eng.decode_calls)
+    want[serve_route(cfg)] = cfg.num_layers * prefills
+    return want
+
+
+def serve_run(cfg, params, sampler, device, *, event=None, policy=None,
+              n_requests=3, prompt_len=12, max_new=6, late=(), late_at=0.0,
+              slots=3, timed=False) -> dict:
+    """One engine run: ``n_requests`` seeded prompts (those in ``late``
+    arrive at ``late_at`` simulated seconds), three ticks, then ``event``
+    (an ``EventKind``, on replica 0) if given, then drain.  Returns the
+    engine, its streams, the logits each sampling step read keyed by (rid,
+    position), the event's stats, its launches and, with ``timed``, the
+    wall times of each prefill and decode call and of the event."""
+    eng = ServingEngine(cfg, n_replicas=2, slots_per_replica=slots,
+                        max_len=prompt_len + max_new + 1, mode="numeric",
+                        params=params, sampler=sampler, policy=policy,
+                        slo=SLO(ttft=1e9, per_token=1e9), device=device)
+    logits = {}
+
+    def hook(rids, positions, rows):
+        for rid, pos, row in zip(rids, positions, rows):
+            logits[(rid, pos)] = row.copy()
+
+    eng.logit_hook = hook
+    times = {"prefill": [], "decode": []}
+    if timed:
+        h = eng.hooks
+
+        def clocked(kind, fn):
+            def call(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = fn(*a, **k)
+                torch.cuda.synchronize()
+                times[kind].append(time.perf_counter() - t0)
+                return res
+            return call
+
+        eng.hooks = ServingHooks(h.init_caches, clocked("prefill", h.prefill),
+                                 clocked("decode", h.decode_step),
+                                 h.prepare_extras)
+    rng = np.random.default_rng(0)
+    for rid in range(n_requests):
+        prompt = rng.integers(0, cfg.vocab_size,
+                              size=prompt_len).astype(np.int32)
+        eng.submit(Request(rid=rid, arrival=late_at if rid in late else 0.0,
+                           prompt=prompt, max_new_tokens=max_new))
+    if device == "cuda":
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        eng.tick()
+    stats, moved, event_s = None, [], 0.0
+    if event is not None:
+        src = eng.replicas[0].pool
+        moved = [(int(src.slot_req[s]), src.read(s)[0])
+                 for s in src.active_slots()]
+        if device == "cuda":
+            torch.cuda.synchronize()
+        te = time.perf_counter()
+        stats = eng.apply_event(ElasticEvent(event, 0, (0,)))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        event_s = time.perf_counter() - te
+        if stats["migrated"]:
+            for rid, cache in moved:
+                req = eng.requests[rid]
+                got = eng.replicas[req.replica].pool.read(req.slot)[0]
+                check(all(torch.equal(g[k], c[k]) for g, c in zip(got, cache)
+                          for k in g),
+                      f"migrated slot of request {rid} differs from its "
+                      f"source")
+        moved = [rid for rid, _ in moved]
+    eng.drain()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES) if device == "cuda" else None
+    if launches is not None:
+        want = serve_launches(eng)
+        check(launches == want, f"serving {cfg.name} launches {launches} "
+                                f"!= {want}")
+    return dict(engine=eng, logits=logits, stats=stats, moved=moved,
+                launches=launches, wall=wall, event_s=event_s, times=times,
+                streams=[list(eng.requests[r].generated)
+                         for r in range(n_requests)])
+
+
+def _first_divergence(a: list, b: list, base: dict) -> str:
+    """Where streams ``a`` and ``b`` first differ, with the top-2 margin of
+    the logits the run ``base`` sampled there."""
+    for rid, (sa, sb) in enumerate(zip(a, b)):
+        for i, (ta, tb) in enumerate(zip(sa, sb)):
+            if ta != tb:
+                pos = len(base["engine"].requests[rid].prompt) + i
+                top = np.sort(base["logits"][(rid, pos)])[-2:]
+                return (f"request {rid} token {i}: {ta} vs {tb}, top-2 "
+                        f"margin {float(top[1] - top[0]):.3e}")
+    return "no divergence"
+
+
+def phase_serve_twins() -> dict:
+    """The tiny dense (float32, head_dim 16: the 3xTF32 flash route) and
+    ssm (float32, chunk 8: the CUDA-core SSD route; prompts of 12 tokens,
+    so every prefill pads a ragged tail) engines on the card beside a CPU
+    twin of the port from the same weights, 2 replicas x 3 slots, 3
+    requests of 6 new tokens, greedy and top-k: undisturbed, a SCALE_IN of
+    replica 0 after two decode ticks (migration), a FAIL_STOP (rebuild) and
+    the drop policy.  Stats, event logs and summaries equal exactly, the
+    streams equal, every logit row within the kernel-consistency bounds
+    (rtol 1e-4, atol 1e-5); on the card the SCALE_IN streams equal the
+    undisturbed run's; launches exact.  Returns launches by path."""
+    counts = {}
+    for family in ("dense", "ssm"):
+        cfg = tiny_config(family, **SERVE_TINY)
+        cpu = R.init_model(torch.Generator().manual_seed(0), cfg)
+        card = params_from_numpy(*cpu, "cuda")
+        for sname, sampler in SERVE_SAMPLERS.items():
+            runs = {}
+            for scen, event, policy in (
+                    ("undisturbed", None, None),
+                    ("scale-in", EventKind.SCALE_IN, None),
+                    ("fail-stop", EventKind.FAIL_STOP, None),
+                    ("drop", EventKind.SCALE_IN, DropPolicy())):
+                a = serve_run(cfg, card, sampler, "cuda", event=event,
+                              policy=policy)
+                b = serve_run(cfg, cpu, sampler, "cpu", event=event,
+                              policy=policy)
+                name = f"serving twin {family} {sname} {scen}"
+                ea, eb = a["engine"], b["engine"]
+                check(a["stats"] == b["stats"]
+                      and ea.event_log == eb.event_log
+                      and json.dumps(ea.summary(), sort_keys=True)
+                      == json.dumps(eb.summary(), sort_keys=True),
+                      f"{name}: stats, event log or summary differ")
+                if a["streams"] != b["streams"]:
+                    check(False, f"{name}: streams differ: "
+                          + _first_divergence(a["streams"], b["streams"], b))
+                check(a["logits"].keys() == b["logits"].keys(),
+                      f"{name}: different sampling steps")
+                worst = max(float(np.abs(a["logits"][k] - b["logits"][k])
+                                  .max()) for k in a["logits"])
+                check(all(np.allclose(a["logits"][k], b["logits"][k],
+                                      rtol=KCC.PARAM_RTOL,
+                                      atol=KCC.PARAM_ATOL0)
+                          for k in a["logits"]),
+                      f"{name}: logits beyond the kernel-consistency bounds")
+                s = a["stats"] or {}
+                log(f"{name}: card = cpu (streams, stats, event log, "
+                    f"summary); logits max_abs_diff {worst:.3e} over "
+                    f"{len(a['logits'])} rows; migrated "
+                    f"{s.get('migrated', 0)} rebuilt {s.get('rebuilt', 0)} "
+                    f"dropped {s.get('dropped', 0)} kv_bytes_moved "
+                    f"{s.get('kv_bytes_moved', 0)}; launches "
+                    f"{ {k: v for k, v in a['launches'].items() if v} }")
+                runs[scen] = a
+                counts[f"serving twin {family} {sname} {scen}"] = \
+                    a["launches"]
+            check(runs["scale-in"]["stats"]["migrated"] > 0
+                  and runs["scale-in"]["stats"]["dropped"] == 0
+                  and runs["drop"]["stats"]["dropped"] > 0
+                  and runs["fail-stop"]["stats"]["rebuilt"] > 0,
+                  f"serving twin {family} {sname}: dispositions")
+            check(runs["scale-in"]["streams"] == runs["undisturbed"]["streams"],
+                  f"serving twin {family} {sname}: SCALE_IN streams differ "
+                  f"from the undisturbed run's")
+            log(f"serving twin {family} {sname}: fail-stop rebuild streams "
+                f"equal the undisturbed run's: "
+                f"{runs['fail-stop']['streams'] == runs['undisturbed']['streams']}")
+    return counts
+
+
+def logits_vs_forward(params, cfg, run: dict, held: bool) -> dict:
+    """Every logits row the run's engine sampled from, against a
+    full-sequence forward of the same tokens, per row within
+    ``SERVE_LOGIT_RTOL`` of the row's max |logit| (held: checked; else
+    printed)."""
+    rtol, atol = SERVE_LOGIT_RTOL, SERVE_BF16["atol"]
+    worst, agree, rows = 0.0, 0, 0
+    for rid, req in sorted(run["engine"].requests.items()):
+        seq = [int(t) for t in req.prompt] + req.generated[:-1]
+        full = full_forward_logits(params, cfg, seq).float().cpu().numpy()
+        for pos in range(len(req.prompt), len(seq) + 1):
+            got, want = run["logits"][(rid, pos)], full[pos - 1]
+            err = float(np.abs(got - want).max())
+            scale = float(np.abs(want).max())
+            worst = max(worst, err / scale)
+            agree += int(np.argmax(got) == np.argmax(want))
+            rows += 1
+            check(not held or err <= rtol * scale + atol,
+                  f"{cfg.name} serving: request {rid} position {pos}: "
+                  f"logits max_abs_err {err:.4e} beyond {rtol:.3e} x max "
+                  f"|logit| {scale:.3f}")
+        del full
+    log(f"{cfg.name} serving: engine logits vs the full-sequence "
+        f"forward over {rows} rows: max err / max |logit| {worst:.4e} "
+        f"(bound {rtol:.4e}, {'held' if held else 'printed'}), argmax "
+        f"agreement {agree}/{rows}")
+    return dict(max_rel_err=worst, bound=rtol, held=held,
+                argmax_agreement=agree / rows, rows=rows)
+
+
+def blocks_vs_forward(params, cfg, run: dict) -> float:
+    """Request 0's sequence through the model once, the residual stream
+    kept at each block's input; then each block, its weights cast to
+    float32, runs its full-sequence forward on that input and, on the
+    same input, prefills the prompt's rows and decodes the rest a step at
+    a time, each step's output within ``SERVE_BLOCK_TIERS`` of the float32
+    forward's row (held).  No error crosses a block or a step here.
+    Returns the largest error as a share of its row's max |output|."""
+    req = run["engine"].requests[0]
+    seq = [int(t) for t in req.prompt] + req.generated[:-1]
+    P, S = len(req.prompt), len(seq)
+    stem, layers, head = params
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    tier = SERVE_BLOCK_TIERS[cfg.family]
+    types = R.flat_layer_types(cfg)
+    x = R.apply_stem(stem, cfg, torch.as_tensor([seq], device="cuda"))
+    pos = torch.arange(S, device="cuda")[None]
+    ctx = RngCtx()
+    worst = 0.0
+    up = lambda t: {k: up(v) for k, v in t.items()} \
+        if isinstance(t, dict) else t.float()      # noqa: E731
+    for i, (blk, p) in enumerate(zip(types, layers)):
+        p32, x32 = up(p), x.float()
+        full = T.init_block_cache(cfg32, blk, 1, S, device="cuda")
+        y, _ = T.apply_block(p32, cfg32, blk, x32, pos, ctx, i, cache=full,
+                             cache_index=0)
+        cache = T.init_block_cache(cfg32, blk, 1, S + 1, device="cuda")
+        T.apply_block(p32, cfg32, blk, x32[:, :P], pos[:, :P], ctx, i,
+                      cache=cache, cache_index=0)
+        for t in range(P, S):
+            got, _ = T.apply_block(p32, cfg32, blk, x32[:, t:t + 1],
+                                   pos[:, t:t + 1], ctx, i, cache=cache,
+                                   cache_index=torch.tensor([t],
+                                                            device="cuda"))
+            err = float((got[0, 0] - y[0, t]).abs().max())
+            scale = float(y[0, t].abs().max())
+            worst = max(worst, err / scale)
+            check(err <= tier["rtol"] * scale + tier["atol"],
+                  f"{cfg.name} serving: block {i} ({blk}, float32) decode "
+                  f"at position {t}: max_abs_err {err:.4e} beyond "
+                  f"{tier['rtol']:g} x max |output| {scale:.3f}")
+        del p32, x32, full, cache, y
+        x, _ = T.apply_block(p, cfg, blk, x, pos, ctx, i,
+                             cache=T.init_block_cache(cfg, blk, 1, S,
+                                                      device="cuda"),
+                             cache_index=0)
+    log(f"{cfg.name} serving: each of the {len(types)} blocks in float32 "
+        f"decoding request 0's {S - P} positions from the forward's "
+        f"inputs: max err / max |output| {worst:.4e} (bound "
+        f"{tier['rtol']:g}, held)")
+    return worst
+
+
+def width_drift(params, cfg, run: dict) -> float:
+    """Request 0 decoded again at batch width 1 (the engine decodes at 4)
+    from its prompt's prefill: the largest difference of the two decodes'
+    logits, as a share of the row's max |logit| (batch width changes only
+    cuBLAS's rounding)."""
+    req = run["engine"].requests[0]
+    seq = [int(t) for t in req.prompt] + req.generated[:-1]
+    P = len(req.prompt)
+    caches = T.init_caches(cfg, 1, len(seq) + 1, device="cuda")
+    _, caches = T.prefill(params, cfg, torch.as_tensor(
+        [seq[:P]], device="cuda"), caches)
+    worst = 0.0
+    for t in range(P, len(seq)):
+        lg, caches = T.decode_step(params, cfg, torch.as_tensor(
+            [[seq[t]]], device="cuda"), caches, torch.as_tensor(
+            [t], device="cuda"))
+        want = run["logits"][(0, t + 1)]
+        got = lg[0, -1].float().cpu().numpy()
+        worst = max(worst, float(np.abs(got - want).max()
+                                 / np.abs(want).max()))
+    return worst
+
+
+def full_forward_logits(params, cfg, tokens: list) -> torch.Tensor:
+    """Logits [S, V] of every position of ``tokens`` in one full-sequence
+    pass (the prefill path over the whole sequence: flash attention or the
+    SSD scan over all positions, the caches written and discarded)."""
+    t = torch.as_tensor(np.asarray(tokens, np.int64)[None], device="cuda")
+    caches = T.init_caches(cfg, 1, len(tokens), device="cuda")
+    return T.forward(params, cfg, t, caches=caches, cache_index=0)[0][0]
+
+
+def phase_serve_full(cfg) -> tuple:
+    """``cfg`` at its published widths and depth, bf16, random weights from
+    seed 0 on the card, 2 replicas x 4 slots, 8 requests of 1024-token
+    prompts and 64 new tokens: requests 0-3 arrive at 0, 4-7 at 4.0
+    simulated seconds (after the event).  Greedy undisturbed (its logits
+    against a full-sequence forward: see ``SERVE_LOGIT_TIERS``), greedy with
+    a SCALE_IN of replica 0 after two decode ticks (every in-flight request
+    migrates, zero drops, the slots equal their source bitwise, the streams
+    the undisturbed run's), and a top-k run (temperature 0.7, top_k 40)
+    with the same SCALE_IN.  Launches exact.  Returns (launches by run,
+    record)."""
+    name = cfg.name
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = R.init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _param_leaves(params))
+    log(f"{name} serving: {cfg.num_layers} layers, {n_params:,} params "
+        f"({str(cfg.torch_dtype)[6:]}), drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    kw = dict(n_requests=8, prompt_len=1024, max_new=64, late=range(4, 8),
+              late_at=4.0, slots=4, timed=True)
+    runs, counts = {}, {}
+    for sname, sampler, scen, event in (
+            ("greedy", SamplerConfig(), "undisturbed", None),
+            ("greedy", SamplerConfig(), "scale-in", EventKind.SCALE_IN),
+            ("top-k", SERVE_FULL_TOPK, "scale-in", EventKind.SCALE_IN)):
+        r = serve_run(cfg, params, sampler, "cuda", event=event, **kw)
+        runs[(sname, scen)] = r
+        counts[f"{name} serving {sname} {scen}"] = r["launches"]
+        toks = sum(len(s) for s in r["streams"])
+        t = r["times"]
+        s = r["stats"] or {}
+        log(f"{name} serving {sname} {scen}: {toks} tokens in "
+            f"{r['wall']:.2f} s ({toks / r['wall']:.1f} tokens/s); "
+            f"prefill {1e3 * np.mean(t['prefill']):.2f} ms a request "
+            f"({len(t['prefill'])}), decode "
+            f"{1e3 * np.mean(t['decode']):.2f} ms a batched step "
+            f"({len(t['decode'])}, {r['engine'].ticks} ticks); "
+            + (f"migrated {s['migrated']} dropped {s['dropped']} rebuilt "
+               f"{s['rebuilt']}, {s['kv_bytes_moved']:,} KV bytes in "
+               f"{r['event_s']:.4f} s wall; " if event else "")
+            + f"launches {({k: v for k, v in r['launches'].items() if v})}")
+        if event is not None:
+            check(s["migrated"] == len(r["moved"]) > 0
+                  and s["dropped"] == 0 and s["rebuilt"] == 0,
+                  f"{name} serving {sname}: SCALE_IN dispositions {s}")
+            base = runs.get((sname, "undisturbed"))
+            if base is not None and r["streams"] != base["streams"]:
+                check(False, f"{name} serving {sname}: SCALE_IN streams "
+                             f"differ: " + _first_divergence(
+                                 r["streams"], base["streams"], base))
+    # gate 1: the engine's logits against a full-sequence forward of the
+    # same tokens (held for codeqwen, printed for mamba2), and every block's
+    # decode against its forward from the same inputs (held for both)
+    base = runs[("greedy", "undisturbed")]
+    gate = logits_vs_forward(params, cfg, base, held=cfg.family == "dense")
+    gate["block_max_rel_err"] = blocks_vs_forward(params, cfg, base)
+    drift = width_drift(params, cfg, base)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{name} serving: request 0 decoded at batch width 1 against the "
+        f"engine's width 4 (bf16): max err / max |logit| {drift:.4e}; peak "
+        f"device memory {peak:.2f} GB")
+    mig = runs[("greedy", "scale-in")]
+    rec = dict(params=n_params, layers=cfg.num_layers, logits=gate,
+               width_1_vs_4_max_rel_err=drift, peak_gb=peak,
+               kv_bytes_moved=mig["stats"]["kv_bytes_moved"],
+               migration_s=mig["event_s"],
+               runs={f"{k[0]} {k[1]}": dict(
+                   wall_s=r["wall"],
+                   tokens=sum(len(s) for s in r["streams"]),
+                   prefill_ms=1e3 * float(np.mean(r["times"]["prefill"])),
+                   decode_ms=1e3 * float(np.mean(r["times"]["decode"])),
+                   decode_steps=len(r["times"]["decode"]),
+                   ticks=r["engine"].ticks) for k, r in runs.items()})
+    del runs, base, mig, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, rec
+
+
+def _param_leaves(params) -> list:
+    stem, layers, head = params
+    seen, out = set(), []
+    for tree in (stem, *layers, head):
+        stack = [tree]
+        while stack:
+            t = stack.pop()
+            if isinstance(t, dict):
+                stack.extend(t.values())
+            elif t.data_ptr() not in seen:      # a tied head is the embedding
+                seen.add(t.data_ptr())
+                out.append(t)
+    return out
+
+
+def phase_serve() -> tuple:
+    """Phase 11: the serving twins, codeqwen1.5-7b and mamba2-2.7b at full
+    width and depth, then ``launch/serve.py --smoke`` and
+    ``examples/torch_serve.py`` on the card.  Returns (launches by path,
+    records, wall seconds)."""
+    t0 = time.perf_counter()
+    counts = phase_serve_twins()
+    recs = {}
+    for cfg in (codeqwen1p5_7b.config(), mamba2_2p7b.config()):
+        c, recs[cfg.name] = phase_serve_full(cfg)
+        counts.update(c)
+    for label, fn in (
+            ("launch/serve.py --smoke (mamba2-2.7b smoke, top-k)",
+             lambda: launch_serve.main(["--arch", "mamba2_2p7b", "--smoke",
+                                        "--temperature", "0.8"])),
+            ("examples/torch_serve.py (codeqwen smoke)",
+             lambda: load_example("torch_serve").main([]))):
+        _build.reset_launch_counts()
+        out = fn()
+        eng = out["engine"]
+        got, want = dict(_build.LAUNCHES), serve_launches(eng)
+        check(got == want and out["summary"]["completed"] == len(
+            eng.requests), f"{label}: launches {got} != {want}")
+        log(f"{label}: {out['summary']['tokens_decoded']} tokens in "
+            f"{out['wall_seconds']:.2f} s; launches "
+            f"{ {k: v for k, v in got.items() if v} }")
+        counts[label] = got
+    wall = time.perf_counter() - t0
+    log(f"phase 11 (serving): {wall:.1f} s")
+    return counts, recs, wall
+
+
 def main() -> None:
     card = phase_device()
     pipes = phase_build()
@@ -2408,6 +3015,9 @@ def main() -> None:
         + cfg.d_model
     recs["fused_adam"] = kernel_adam(gen, stage)
     recs.update(kernel_ssd(gen))
+    torch.cuda.empty_cache()
+    for route, rec in kernel_ssd_final_state(gen).items():
+        recs[route].update(rec)
     torch.cuda.empty_cache()
     recs["threefry_dropout"] = kernel_dropout(gen)
     for dt, (alu, mad) in pipes.items():
@@ -2484,12 +3094,10 @@ def main() -> None:
     for name, errs in kernel_path_shapes(gen).items():
         recs[name].update(errs)
     torch.cuda.empty_cache()
-    paths = {"codeqwen1.5-7b": phase_train(
-        dataclasses.replace(cfg, num_layers=2), DENSE_LAUNCHES, steps=2)[0]}
-    gc.collect()                 # free the dense cluster's host and card state
-    torch.cuda.empty_cache()
-    # this slice's path: the same model at dropout 0.1, samples' streams
-    # addressed by their global ids, 2 steps
+    # the dense train step runs at dropout 0.1 only (its plain twin, the
+    # same step without dropout, was cut for the serving phase's time):
+    # samples' streams addressed by their global ids, 2 steps
+    paths = {}
     paths["codeqwen1.5-7b dropout 0.1"] = phase_train(
         dataclasses.replace(cfg, num_layers=2, dropout_rate=DROPOUT_RATE),
         DENSE_DROPOUT_LAUNCHES, steps=2, profile_step=1,
@@ -2514,6 +3122,10 @@ def main() -> None:
     paths.update(scenario_paths)
     fuzz_paths, fuzz_runs, fuzz_s = phase_fuzz()
     paths.update(fuzz_paths)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_paths, serving, serve_s = phase_serve()
+    paths.update(serve_paths)
     kernels = [dict(name=name, route="cuda", source=SOURCES[name][0],
                     replaces=SOURCES[name][1],
                     launches=sum(p[name] for p in paths.values()),
@@ -2548,6 +3160,7 @@ def main() -> None:
     log(json.dumps({"recoveries": recoveries}))
     log(json.dumps({"scenarios": scenarios, "phase_s": scenario_s}))
     log(json.dumps({"fuzz": fuzz_runs, "phase_s": fuzz_s}))
+    log(json.dumps({"serving": serving, "phase_s": serve_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

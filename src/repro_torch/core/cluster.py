@@ -97,8 +97,9 @@ def resolve_device(device) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "VirtualCluster runs on the card by default and no CUDA device "
-            "is available; pass device='cpu' to run the plain versions")
+            "the port runs on the card by default (VirtualCluster, "
+            "ServingEngine) and no CUDA device is available; pass "
+            "device='cpu' to run the plain versions")
     return dev
 
 

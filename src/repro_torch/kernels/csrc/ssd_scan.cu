@@ -29,7 +29,7 @@
 // 2. ssd_state_pass_kernel (ssd_scan_sm90_common.cuh, included as it is):
 //    H_{g+1} = seg_g H_g + S_g in float32, each multiply and add rounded,
 //    sequential over groups, elementwise over the [p, n] state padded to
-//    a multiple of 4 floats.
+//    a multiple of 4 floats; when asked, also the final state H_NG.
 // 3. chunk <= 64: ssd_cc_chunk_out_small_kernel, a block per (group,
 //    batch and block of heads of one B/C group, p tile).  x, B, C and the
 //    decay factors of the group's rows go to shared memory; C_i.B_j o L o
@@ -115,6 +115,7 @@ struct Args {
   float* ws;          // [b*h, groups, PN4]: S_g as [n][p], then H_g in place
   float* seg;         // [b*h, groups]: exp of each group's decay
   float* cb;          // chunk > 64: [b, g, chunks, tile pairs, 64, 64]
+  float* fin;         // null, or the final state [b*h, PN4] as [n][p]
   int S, H, G, P, N, chunk;
   long long x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh;
   long long b_sb, b_ss, b_sg, c_sb, c_ss, c_sg;
@@ -913,7 +914,7 @@ int launch(const Args& a, int batch, cudaStream_t st) {
     ssd_state_pass_kernel<<<(unsigned)((quads + kPassThreads - 1) /
                                        kPassThreads),
                             kPassThreads, 0, st>>>(a.ws, a.seg, base.NG,
-                                                   base.PN4, quads);
+                                                   base.PN4, quads, a.fin);
     if ((err = (int)cudaGetLastError()) != cudaSuccess) return err;
   }
 
@@ -959,12 +960,15 @@ int launch(const Args& a, int batch, cudaStream_t st) {
 // x: [b, s, h, p] (unit p stride); dt: [b, s, h] float32; A: [h] float32;
 // B, C: [b, s, g, n] (unit n stride); y: [b, s, h, p] contiguous, in x's
 // dtype; ws: b*h*groups*round_up(p*n, 4) float32 and seg: b*h*groups
-// float32, groups = ceil((s / chunk) / max(1, 64 / chunk)).  Needs
+// float32, groups = ceil((s / chunk) / max(1, 64 / chunk)); fin: null, or
+// the final state, b*h*round_up(p*n, 4) float32, each [b, h] state as
+// [n][p] (the workspace's layout), written by the state pass.  Needs
 // s % chunk == 0, chunk <= 256, n <= 128, h % g == 0, which its launcher
 // (kernels/ssd_scan.py) checks.
 extern "C" int repro_ssd_scan(
     const void* x, const void* dt, const void* A, const void* B,
-    const void* C, void* y, void* ws, void* seg, void* cb, int batch, int S,
+    const void* C, void* y, void* ws, void* seg, void* cb, void* fin,
+    int batch, int S,
     int H,
     int G, int P, int N, int chunk, long long x_sb, long long x_ss,
     long long x_sh, long long dt_sb, long long dt_ss, long long dt_sh,
@@ -972,7 +976,7 @@ extern "C" int repro_ssd_scan(
     long long c_ss, long long c_sg, int dtype, void* stream) {
   if (batch == 0 || S == 0 || H == 0 || P == 0) return (int)cudaGetLastError();
   const Args a{x, (const float*)dt, (const float*)A, B, C, y, (float*)ws,
-               (float*)seg, (float*)cb, S, H, G, P, N, chunk,
+               (float*)seg, (float*)cb, (float*)fin, S, H, G, P, N, chunk,
                x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh,
                b_sb, b_ss, b_sg, c_sb, c_ss, c_sg};
   cudaStream_t st = (cudaStream_t)stream;

@@ -100,11 +100,15 @@ __device__ void chunk_cumsum(double* cum, float* dts, double* warp_tot,
 // H_{c+1} = seg_c H_c + S_c from H_0 = 0, in float32 (the multiply and the
 // add each rounded, as the reference's state update), each H_c (c >= 1)
 // written over S_c once S_c is read.  Four neighbouring elements a thread;
-// the S_c of kPassBatch chunks are loaded before the first is used.
+// the S_c of kPassBatch chunks are loaded before the first is used.  With
+// `fin` (may be null) also the final state H_nc = seg_{nc-1} H_{nc-1} +
+// S_{nc-1}, the reference's scan carry, in the workspace's own layout
+// ([b*h][PN]): S_{nc-1} is read before H_{nc-1} overwrites it.  At nc == 1
+// that is S_0, and slot 0 gets H_0 = 0, which no chunk_out reads.
 __global__ void __launch_bounds__(kPassThreads)
     ssd_state_pass_kernel(float* __restrict__ ws,
                           const float* __restrict__ seg, int nc, int PN,
-                          long long quads) {
+                          long long quads, float* __restrict__ fin) {
   const long long idx = (long long)blockIdx.x * kPassThreads + threadIdx.x;
   if (idx >= quads) return;
   const long long per_bh = PN >> 2;
@@ -130,7 +134,17 @@ __global__ void __launch_bounds__(kPassThreads)
       }
     }
   }
-  slot[(long long)(nc - 1) * per_bh] = h;
+  float4* last = slot + (long long)(nc - 1) * per_bh;
+  if (fin) {
+    const float4 sv = *last;
+    const float d = sg[nc - 1];
+    reinterpret_cast<float4*>(fin)[idx] =
+        make_float4(__fadd_rn(__fmul_rn(d, h.x), sv.x),
+                    __fadd_rn(__fmul_rn(d, h.y), sv.y),
+                    __fadd_rn(__fmul_rn(d, h.z), sv.z),
+                    __fadd_rn(__fmul_rn(d, h.w), sv.w));
+  }
+  *last = h;
 }
 
 }  // namespace

@@ -612,17 +612,18 @@ int launch_out(const Args& a, dim3 grid, cudaStream_t st) {
 // other stride and each base a multiple of 16 bytes); dt: [b, s, h]
 // float32; A: [h] float32; y: [b, s, h, p] float32 contiguous.  Workspace
 // from the caller, nc = s / chunk: ws [b*h*nc*p*n] and seg [b*h*nc]
-// float32, cum [b*h*nc*chunk] double, dts [b*h*nc*chunk] float32.
+// float32, cum [b*h*nc*chunk] double, dts [b*h*nc*chunk] float32.  fin:
+// null, or the final state [b, h, p, n] float32, written by the state pass.
 // Needs p, n multiples of 16 with p <= 64, n <= 128, chunk a multiple of
 // 64 up to 256, s % chunk == 0, h % g == 0 and b*h <= 65535; returns
 // cudaErrorInvalidValue otherwise.  Launches ssd_f32_chunk_state_kernel,
-// ssd_state_pass_kernel (when nc > 1) and ssd_f32_chunk_out_kernel, in
-// that order, on `stream`: one launch of the route as its wrapper
+// ssd_state_pass_kernel (when nc > 1 or fin is given) and
+// ssd_f32_chunk_out_kernel, in that order, on `stream`: one launch of the route as its wrapper
 // (kernels/ssd_scan.py) counts it.  Returns the first launch error.
 extern "C" int repro_ssd_scan_sm90_f32(
     const void* x, const void* dt, const void* A, const void* B,
     const void* C, void* y, void* ws, void* seg, void* cum, void* dts,
-    int batch, int S, int H, int G, int P, int N, int chunk, long long x_sb,
+    void* fin, int batch, int S, int H, int G, int P, int N, int chunk, long long x_sb,
     long long x_ss, long long x_sh, long long dt_sb, long long dt_ss,
     long long dt_sh, long long b_sb, long long b_ss, long long b_sg,
     long long c_sb, long long c_ss, long long c_sg, void* stream) {
@@ -650,12 +651,13 @@ extern "C" int repro_ssd_scan_sm90_f32(
   const dim3 state_grid((unsigned)nc, bh);
   int err = launch_state(a, state_grid, st);
   if (err) return err;
-  if (nc > 1) {
+  if (nc > 1 || fin) {
     const long long quads = (long long)bh * P * N / 4;
     ssd_state_pass_kernel<<<(unsigned)((quads + kPassThreads - 1) /
                                        kPassThreads),
                             kPassThreads, 0, st>>>(a.ws, a.seg, nc, P * N,
-                                                   quads);
+                                                   quads,
+                                                   static_cast<float*>(fin));
     err = (int)cudaGetLastError();
     if (err) return err;
   }

@@ -113,17 +113,26 @@ class _FlashAttention(torch.autograd.Function):
 
 class _SSDScan(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dt, A, B, C, chunk):
+    def forward(ctx, x, dt, A, B, C, chunk, final_state):
         ctx.save_for_backward(x, dt, A, B, C)      # B, C at group level
         ctx.chunk = chunk
         if on_card(x):
-            return ssd_scan_cuda(x, dt, A, B, C, chunk)
-        rep = x.shape[2] // B.shape[2]
-        return ref.ssd_reference(x, dt, A, B.repeat_interleave(rep, dim=2),
-                                 C.repeat_interleave(rep, dim=2))[0]
+            if final_state:
+                y, state = ssd_scan_cuda(x, dt, A, B, C, chunk, True)
+            else:
+                y, state = ssd_scan_cuda(x, dt, A, B, C, chunk), None
+        else:
+            rep = x.shape[2] // B.shape[2]
+            y, state = ref.ssd_reference(
+                x, dt, A, B.repeat_interleave(rep, dim=2),
+                C.repeat_interleave(rep, dim=2))
+            state = state if final_state else None
+        if state is not None:
+            ctx.mark_non_differentiable(state)
+        return y, state
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, g_state=None):
         saved = ctx.saved_tensors
         needs = ctx.needs_input_grad[:5]
         with torch.enable_grad():
@@ -133,7 +142,7 @@ class _SSDScan(torch.autograd.Function):
             wrt = [t for t in ins if t.requires_grad]
             grads = iter(torch.autograd.grad(y, wrt, g.float()))
         return tuple(next(grads).to(t.dtype) if need else None
-                     for t, need in zip(saved, needs)) + (None,)
+                     for t, need in zip(saved, needs)) + (None, None)
 
 
 def _mask_scale(x, key, sample_ids, p, r):
@@ -167,19 +176,22 @@ def dropout(x, key, sample_ids, rate: float):
     return _Dropout.apply(x, key, sample_ids, p, r)
 
 
-def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, initial_state=None):
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, initial_state=None,
+             return_final_state: bool = False):
     """Mamba2 SSD, model-layer layout: x [b,s,h,p], dt [b,s,h], A [h],
-    B, C [b,s,g,n] (groups).  Returns ``(y, None)``, in the place of
-    ``ref.ssd_chunked``'s ``(y, final_state)``: no final state.
+    B, C [b,s,g,n] (groups).  Returns ``(y, final_state)`` as
+    ``ref.ssd_chunked`` does, final_state [b,h,p,n] float32 the state after
+    the last row when ``return_final_state`` (the serving prefill), else
+    ``None`` (the training launch, which does no extra work for it).  The
+    final state has no gradient.
 
-    Scans from a zero state (the training path): a non-``None`` state
-    raises, as does ``s % min(chunk, s) != 0``, which the TPU kernel
-    asserts."""
+    Scans from a zero state: a non-``None`` initial state raises, as does
+    ``s % min(chunk, s) != 0``, which the TPU kernel asserts."""
     if initial_state is not None:
         raise ValueError(
             "ssd_scan: initial_state is not supported by the kernel (it "
             "always scans from a zero state); pass initial_state=None or use "
-            "ref.ssd_chunked for the resume-from-state (prefill/decode) path")
+            "ref.ssd_chunked for the resume-from-state path")
     b, s, h, p = x.shape
     g = B.shape[2]
     if g <= 0 or h % g != 0:
@@ -191,7 +203,7 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, initial_state=None):
     if s % chunk != 0:
         raise ValueError(f"ssd_scan: seq len s={s} is not a multiple of "
                          f"chunk={chunk}")
-    return _SSDScan.apply(x, dt, A, B, C, chunk), None
+    return _SSDScan.apply(x, dt, A, B, C, chunk, bool(return_final_state))
 
 
 def flash_attention(q, k, v, *, causal: bool = True):

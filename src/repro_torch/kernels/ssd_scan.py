@@ -27,6 +27,10 @@ It is chunk-parallel too: rows go in groups of :func:`group_chunks` chunks
 (at most 64 rows, or one chunk above 64), with one float32 [p, n] state a
 group in its workspace (:func:`cuda_core_workspace`).
 
+Asked for it, each route also returns the final state [b, h, p, n] float32,
+the state after the last row (the reference's ``scan_fn`` carry), from its
+state pass: the training launch passes a null pointer and does no extra work.
+
 A failed launch raises; no route takes over from another.
 """
 from __future__ import annotations
@@ -105,32 +109,37 @@ def _aligned_strides(name: str, t: torch.Tensor) -> list:
 
 
 def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                  B: torch.Tensor, C: torch.Tensor, chunk: int) -> torch.Tensor:
+                  B: torch.Tensor, C: torch.Tensor, chunk: int,
+                  final_state: bool = False):
     """x: [b,s,h,p]; dt: [b,s,h]; A: [h]; B, C: [b,s,g,n], all on one card.
     Returns y: [b,s,h,p] in x's dtype, from the route :func:`uses_sm90`
-    and :func:`uses_sm90_f32` pick.
+    and :func:`uses_sm90_f32` pick; with ``final_state``, ``(y, state)``,
+    state [b,h,p,n] float32 after the last row.
 
     Checks the kernels' own limits (chunk, n, alignment on the tensor-core
     route); ``h % g == 0`` and ``s % chunk == 0`` are the caller's to hold,
     as ``ops.ssd_scan`` does."""
     p, n = x.shape[-1], B.shape[-1]
     if uses_sm90(x.dtype, p, n, chunk):
-        return _ssd_scan_tensor_cores("ssd_scan_sm90", x, dt, A, B, C, chunk)
+        return _ssd_scan_tensor_cores("ssd_scan_sm90", x, dt, A, B, C, chunk,
+                                      final_state)
     if uses_sm90_f32(x.dtype, p, n, chunk):
         return _ssd_scan_tensor_cores("ssd_scan_sm90_f32", x, dt, A, B, C,
-                                      chunk)
-    return ssd_scan_cuda_cores(x, dt, A, B, C, chunk)
+                                      chunk, final_state)
+    return ssd_scan_cuda_cores(x, dt, A, B, C, chunk, final_state)
 
 
-def _ssd_scan_tensor_cores(kernel: str, x, dt, A, B, C,
-                           chunk: int) -> torch.Tensor:
+def _ssd_scan_tensor_cores(kernel: str, x, dt, A, B, C, chunk: int,
+                           final_state: bool = False):
     """A tensor-core kernel, ``csrc/<kernel>.cu`` (C entry
     ``repro_<kernel>``), for inputs its predicate accepts: three kernels on
     the caller's stream, counted as one launch of ``kernel``.  The bf16 and
     float32 kernels take the same arguments.  Allocates their workspace:
     the chunks' state parts, then in place their entering states (float32,
     b*h*(s/chunk)*p*n elements), exp of each chunk's decay, and the decay's
-    running sums (float64) and dt (float32) for each row."""
+    running sums (float64) and dt (float32) for each row; with
+    ``final_state``, the state [b, h, p, n] float32 the state pass writes
+    (returned beside y)."""
     _check(x, dt, A, B, C, chunk)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -144,13 +153,16 @@ def _ssd_scan_tensor_cores(kernel: str, x, dt, A, B, C,
     seg = torch.empty(b * h * nc, dtype=torch.float32, device=x.device)
     cum = torch.empty(b * h * s, dtype=torch.float64, device=x.device)
     dts = torch.empty(b * h * s, dtype=torch.float32, device=x.device)
+    fin = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device) \
+        if final_state else None
     _build.launch(kernel, f"repro_{kernel}",
                   x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                   C.data_ptr(), y.data_ptr(), ws.data_ptr(), seg.data_ptr(),
                   cum.data_ptr(), dts.data_ptr(),
+                  None if fin is None else fin.data_ptr(),
                   b, s, h, g, p, n, chunk, *strides[:3], *dt.stride(),
                   *strides[3:], _stream(x))
-    return y
+    return y if fin is None else (y, fin)
 
 
 def group_chunks(chunk: int) -> int:
@@ -178,12 +190,16 @@ def cuda_core_workspace(b: int, s: int, h: int, g: int, p: int, n: int,
             b * g * chunks * pairs * CUDA_CORE_GROUP_ROWS ** 2)
 
 
-def ssd_scan_cuda_cores(x, dt, A, B, C, chunk: int) -> torch.Tensor:
+def ssd_scan_cuda_cores(x, dt, A, B, C, chunk: int,
+                        final_state: bool = False):
     """The CUDA-core kernel (``csrc/ssd_scan.cu``), for any dtype and width
     it takes, bf16 at mamba2's widths too (``chip_smoke.py`` runs both
     routes on the same inputs): three kernels on the caller's stream (four
     above chunk 64), counted as one launch of ``ssd_scan``.  Allocates
-    their workspace (:func:`cuda_core_workspace`)."""
+    their workspace (:func:`cuda_core_workspace`).  With ``final_state``
+    returns ``(y, state)``: the state pass writes each [p, n] state as its
+    workspace holds it, [n][p] in p*n rounded up to 4 floats, and state is
+    the [b, h, p, n] view of that buffer."""
     _check(x, dt, A, B, C, chunk)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -193,10 +209,16 @@ def ssd_scan_cuda_cores(x, dt, A, B, C, chunk: int) -> torch.Tensor:
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     ws, seg, cb = (torch.empty(k, dtype=torch.float32, device=x.device)
                    for k in cuda_core_workspace(b, s, h, g, p, n, chunk))
+    pn4 = -(-(p * n) // 4) * 4
+    fin = torch.empty((b * h, pn4), dtype=torch.float32, device=x.device) \
+        if final_state else None
     _build.launch("ssd_scan", "repro_ssd_scan",
                   x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                   C.data_ptr(), y.data_ptr(), ws.data_ptr(), seg.data_ptr(),
-                  cb.data_ptr(), b, s, h, g, p, n, chunk,
+                  cb.data_ptr(), None if fin is None else fin.data_ptr(),
+                  b, s, h, g, p, n, chunk,
                   *x.stride()[:3], *dt.stride(), *B.stride()[:3],
                   *C.stride()[:3], DTYPE_CODES[x.dtype], _stream(x))
-    return y
+    if fin is None:
+        return y
+    return y, fin[:, :p * n].reshape(b, h, n, p).transpose(2, 3)

@@ -15,8 +15,15 @@ op, sample), never on which rank or micro-batch slot computes it.  The
 folds down to the op run on the host; the sample-id fold and the draws run
 in the dropout kernel (``kernels/ops.dropout``).
 
-Not yet ported (they raise): KV-cache decode and the cached/offset attention
-branch (serving slice), MLA and the chunked attention path.
+**KV caches** (the serving plane): a layer's cache is a dict of
+``[B, T, Hkv, hd]`` tensors in the model's dtype, updated in place (the
+reference returns a new pytree with the same values).  A prefill (a scalar
+``cache_index`` 0) is causal self-attention over the prompt's own k/v,
+through the flash-attention kernel, then k/v are written into the cache;
+a decode step (per-row positions) attends over the cache in plain tensor
+code, as the reference does (it has no kernel there).
+
+Not yet ported (they raise): MLA and the chunked attention path.
 """
 from __future__ import annotations
 
@@ -122,22 +129,57 @@ def init_attention(gen, cfg: ModelConfig) -> Dict[str, Any]:
 def _sdpa(q, k, v, causal: bool, q_offset=None):
     """q: [B,S,H,hd]; k,v: [B,T,Hkv,hd]. GQA broadcast. Returns [B,S,H,hd].
 
-    Training self-attention (no offset, S == T) goes to the flash-attention
-    kernel; the cached/offset branch waits for the serving slice."""
+    Aligned self-attention (no offset, S == T) goes to the flash-attention
+    kernel.  With ``q_offset`` ([B] position of q[:, 0] within the keys:
+    attention over a KV cache) it is the reference's plain form, keys past
+    each query's position masked, but with the q·k products taken in
+    float32 (the reference rounds them to q's dtype first: bf16 there)."""
     S, T = q.shape[1], k.shape[1]
     if q_offset is None and S == T:
         return ops.flash_attention(q, k, v, causal=causal)
-    raise NotImplementedError(
-        "attention with a cache offset or S != T (decode) is not ported yet")
+    if q_offset is None:
+        raise NotImplementedError(
+            "attention with S != T and no cache offset is not ported")
+    B, _, H, hd = q.shape
+    Hkv = k.shape[2]
+    qr = q.reshape(B, S, Hkv, H // Hkv, hd)
+    logits = torch.einsum("bskrh,btkh->bkrst", qr.float(), k.float())
+    logits = logits * hd ** -0.5
+    if causal:
+        qpos = q_offset[:, None] + torch.arange(S, device=q.device)[None]
+        mask = qpos[..., None] >= torch.arange(T, device=q.device)[None, None]
+        logits = torch.where(mask[:, None, None], logits,
+                             torch.full((), -1e30, device=q.device))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkrst,btkh->bskrh", probs, v)
+    return out.reshape(B, S, H, v.shape[-1])
+
+
+def is_prefill(cache_index) -> bool:
+    """True for the prefill's cache index: a Python (or 0-d) 0, the start
+    of every sequence; False for a decode step's per-row positions."""
+    if isinstance(cache_index, torch.Tensor):
+        return cache_index.dim() == 0 and int(cache_index) == 0
+    return isinstance(cache_index, (int, np.integer)) and cache_index == 0
+
+
+def cache_positions(cache_index, batch: int, device) -> torch.Tensor:
+    """The per-row write offsets [B] (int64) of a scalar or [B] index."""
+    idx = torch.as_tensor(cache_index, dtype=torch.int64, device=device)
+    return idx.expand(batch) if idx.dim() == 0 else idx
 
 
 def apply_attention(params, cfg: ModelConfig, x, positions,
                     kv_cache: Optional[Dict] = None, cache_index=None,
-                    causal: bool = True):
-    """x: [B,S,d] -> ([B,S,d], None).  Training path only (no KV cache)."""
-    if kv_cache is not None or cfg.attn_chunked:
+                    causal: bool = True, rows=None):
+    """x: [B,S,d] -> ([B,S,d], cache).  With ``kv_cache``, k/v are written
+    at ``cache_index`` (0 for a prefill, [B] positions for a decode step)
+    and the cache, updated in place, is returned; ``rows`` ([n] batch rows,
+    None = all) limits the writes to those rows, so that a batch may carry
+    rows whose caches must not change (the engine's fixed-width decode)."""
+    if cfg.attn_chunked:
         raise NotImplementedError(
-            "KV-cache and chunked attention paths are not ported yet")
+            "the chunked attention path is not ported yet")
     B, S, d = x.shape
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = (x @ params["wq"]).reshape(B, S, H, hd)
@@ -145,8 +187,31 @@ def apply_attention(params, cfg: ModelConfig, x, positions,
     v = (x @ params["wv"]).reshape(B, S, Hkv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = _sdpa(q, k, v, causal=causal)
-    return out.reshape(B, S, H * hd) @ params["wo"], None
+    if kv_cache is None:
+        out = _sdpa(q, k, v, causal=causal)
+    else:
+        idx = cache_positions(cache_index, B, x.device)
+        _scatter_seq(kv_cache["k"], k, idx, rows)
+        _scatter_seq(kv_cache["v"], v, idx, rows)
+        if is_prefill(cache_index):
+            # the cache holds the model's dtype, so the prompt's own k/v
+            # are what a read-back would give: flash over them
+            out = _sdpa(q, k, v, causal=causal)
+        else:
+            out = _sdpa(q, kv_cache["k"].to(q.dtype),
+                        kv_cache["v"].to(q.dtype), causal=causal,
+                        q_offset=idx)
+    return out.reshape(B, S, H * hd) @ params["wo"], kv_cache
+
+
+def _scatter_seq(cache, new, index, rows=None) -> None:
+    """cache[b, index[b]:index[b]+S] = new[b] in place, for the batch rows
+    ``rows`` (None: all).  cache: [B,T,...]; new: [B,S,...]; index: [B]."""
+    B, S = new.shape[:2]
+    r = torch.arange(B, device=new.device) if rows is None \
+        else torch.as_tensor(rows, dtype=torch.int64, device=new.device)
+    cols = index[r][:, None] + torch.arange(S, device=new.device)[None]
+    cache[r[:, None], cols] = new[r].to(cache.dtype)
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Mamba2 (SSD, state-space duality) block, arXiv:2405.21060, mirroring
-``repro.models.mamba`` (training path).
+``repro.models.mamba``.
 
 The full-sequence branch of :func:`apply_mamba` runs the SSD scan through
 ``ops.ssd_scan`` (the CUDA kernel for a CUDA tensor, the sequential oracle on
@@ -10,9 +10,17 @@ port runs no plain version on the main path.  On the CPU both packages run
 plain versions.
 
 :func:`ssd_chunked` is the plain chunked scan (``kernels/ref.py``), which
-``ops.ssd_scan``'s backward differentiates.  The branches with a state
-(single-token decode and prefill-with-state), :func:`ssd_decode_step` and
-:func:`init_mamba_state` wait for the serving slice and raise.
+``ops.ssd_scan``'s backward differentiates.
+
+The state branches serve the serving plane.  A single-token decode is the
+O(1) recurrent update :func:`ssd_decode_step` in plain tensor code, as in
+the reference (no kernel there).  A prefill starts from the zero state of
+:func:`init_mamba_state` and runs the SSD kernel with its final state
+(``ops.ssd_scan(..., return_final_state=True)``), at the reference's chunk
+``min(ssm_chunk, S)`` with the tail padded by rows of ``dt = 0``, which
+leave the state as it is; a prefill resumed from a carried state raises.
+States are updated in place (the reference returns new ones with the same
+values).
 """
 from __future__ import annotations
 
@@ -25,8 +33,6 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ssd_chunked  # noqa: F401  (re-export)
 from .config import ModelConfig
 from . import layers as L
-
-_SERVING_SLICE = "the serving slice of the port (decode and prefill)"
 
 
 def init_mamba(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
@@ -59,11 +65,39 @@ def _split_proj(cfg: ModelConfig, zxbcdt):
 
 
 def ssd_decode_step(x, dt, A, B, C, state):
-    raise NotImplementedError(f"ssd_decode_step waits for {_SERVING_SLICE}")
+    """Single-token recurrent update, in float32.
+    x: [b,1,h,p]; dt: [b,1,h]; B,C: [b,1,g,n]; state: [b,h,p,n].
+    Returns (y [b,1,h,p] in x's dtype, new_state [b,h,p,n] float32)."""
+    h, g = x.shape[2], B.shape[2]
+    Bh = B[:, 0].float().repeat_interleave(h // g, dim=1)      # [b,h,n]
+    Ch = C[:, 0].float().repeat_interleave(h // g, dim=1)
+    dA = torch.exp(dt[:, 0] * A[None, :])                      # [b,h]
+    upd = torch.einsum("bh,bhp,bhn->bhpn", dt[:, 0], x[:, 0].float(), Bh)
+    new_state = dA[:, :, None, None] * state + upd
+    y = torch.einsum("bhpn,bhn->bhp", new_state, Ch)
+    return y[:, None].to(x.dtype), new_state
 
 
-def init_mamba_state(cfg: ModelConfig, batch: int):
-    raise NotImplementedError(f"init_mamba_state waits for {_SERVING_SLICE}")
+def init_mamba_state(cfg: ModelConfig, batch: int, device=None):
+    """The zero state a sequence starts from: ``ssm`` [b,h,p,n] float32 and
+    ``conv`` [b,k-1,conv_dim] in the model's dtype."""
+    H, p_, n = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+    return {
+        "ssm": torch.zeros((batch, H, p_, n), dtype=torch.float32,
+                           device=device),
+        "conv": torch.zeros((batch, cfg.conv_kernel - 1, conv_dim),
+                            dtype=cfg.torch_dtype, device=device),
+    }
+
+
+def _put_rows(dst: torch.Tensor, src: torch.Tensor, rows) -> None:
+    """dst[rows] = src[rows] in place (every row when ``rows`` is None)."""
+    if rows is None:
+        dst.copy_(src)
+    else:
+        r = torch.as_tensor(rows, dtype=torch.int64, device=dst.device)
+        dst[r] = src[r].to(dst.dtype)
 
 
 def _causal_conv(x, w, conv_state=None):
@@ -84,16 +118,21 @@ def _causal_conv(x, w, conv_state=None):
 
 
 def apply_mamba(params, cfg: ModelConfig, x, state: Optional[Dict] = None,
+                cache_index=None, rows=None,
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Mamba2 block, full-sequence training branch.  x: [b,s,d] ->
-    ([b,s,d], None).  ``state`` (decode / prefill-with-state) raises."""
-    if state is not None:
-        raise NotImplementedError(
-            f"apply_mamba with a state (decode, prefill-with-state) waits "
-            f"for {_SERVING_SLICE}")
+    """Mamba2 block.  x: [b,s,d] -> ([b,s,d], state).  ``state`` =
+    {"ssm": [b,h,p,n], "conv": [b,k-1,conv_dim]} enables the serving
+    branches, updated in place: a single-token decode (s == 1), or a
+    prefill (s > 1), which must start the sequence (``cache_index`` 0) and
+    scans from the zero state; ``rows`` ([n] batch rows, None = all) limits
+    the state writes to those rows.  None = full-sequence training."""
     B_, S, _ = x.shape
     H, p_ = cfg.ssm_heads, cfg.ssm_headdim
     di, ds, ng = cfg.d_inner, cfg.ssm_state, cfg.ssm_ngroups
+    if state is not None and S > 1 and not L.is_prefill(cache_index):
+        raise NotImplementedError(
+            "a prefill resumed from a carried SSM state is not ported: the "
+            "SSD kernels scan from a zero state (cache_index must be 0)")
     if cfg.mamba_split_proj:
         # slice the weight per component, as the reference does for TP
         w = params["in_proj"]
@@ -106,7 +145,8 @@ def apply_mamba(params, cfg: ModelConfig, x, state: Optional[Dict] = None,
     else:
         z, xs, Bv, Cv, dt = _split_proj(cfg, x @ params["in_proj"])
     xBC = torch.cat([xs, Bv, Cv], dim=-1)
-    xBC, _ = _causal_conv(xBC, params["conv_w"])
+    xBC, conv_state = _causal_conv(
+        xBC, params["conv_w"], None if state is None else state["conv"])
     xBC = F.silu(xBC)
     # views of xBC: the kernel reads them through their strides
     xs = xBC[..., :di].reshape(B_, S, H, p_)
@@ -116,8 +156,34 @@ def apply_mamba(params, cfg: ModelConfig, x, state: Optional[Dict] = None,
     dt_in = dt.float() + params["dt_bias"]
     dt = torch.logaddexp(dt_in, torch.zeros_like(dt_in))
     A = -torch.exp(params["A_log"])
-    y, _ = ops.ssd_scan(xs, dt, A, Bv, Cv, chunk=cfg.ssm_chunk)
+    if state is None:
+        y, _ = ops.ssd_scan(xs, dt, A, Bv, Cv, chunk=cfg.ssm_chunk)
+    else:
+        if S == 1:
+            y, ssm_state = ssd_decode_step(xs, dt, A, Bv, Cv, state["ssm"])
+        else:
+            y, ssm_state = _prefill_scan(xs, dt, A, Bv, Cv,
+                                         min(cfg.ssm_chunk, S))
+        _put_rows(state["ssm"], ssm_state, rows)
+        _put_rows(state["conv"], conv_state, rows)
     y = y + xs * params["D"][None, None, :, None]
     y = y.reshape(B_, S, di).to(x.dtype)
     y = L.rmsnorm(params["out_norm"], y * F.silu(z), cfg.norm_eps)
-    return y @ params["out_proj"], None
+    return y @ params["out_proj"], state
+
+
+def _prefill_scan(xs, dt, A, Bv, Cv, chunk: int):
+    """The SSD scan of a prefill from the zero state, with its final state:
+    a ragged tail is padded with rows of dt = 0 (no state update), as the
+    reference's ``ssd_chunked`` pads, so the final state is the state at
+    the last real row; the padded rows' y are dropped."""
+    S = xs.shape[1]
+    pad = (-S) % chunk
+    if pad:
+        xs = F.pad(xs, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bv = F.pad(Bv, (0, 0, 0, 0, 0, pad))
+        Cv = F.pad(Cv, (0, 0, 0, 0, 0, pad))
+    y, state = ops.ssd_scan(xs, dt, A, Bv, Cv, chunk=chunk,
+                            return_final_state=True)
+    return y[:, :S], state

@@ -1,14 +1,17 @@
 """Per-layer model API used by the VirtualCluster, mirroring
 ``repro.models.registry``: each physical layer is an independently owned
-dict of tensors that can migrate between pipeline stages.
+dict of tensors that can migrate between pipeline stages.  Also the
+whole-model init (:func:`init_model`) and the serving hooks
+(:func:`serving_hooks`) the serving engine drives.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+import dataclasses
+from typing import Any, Callable, Dict, List
 
 import torch
 
-from .config import ModelConfig
+from .config import ATTN, MAMBA, ModelConfig
 from . import layers as L
 from . import transformer as T
 
@@ -50,6 +53,88 @@ def apply_stem(params, cfg: ModelConfig, tokens):
 def apply_head(params, cfg: ModelConfig, x):
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.lm_logits(params["head"], x)
+
+
+def init_model(gen: torch.Generator, cfg: ModelConfig):
+    """The whole model, ``(stem, layers, head)``, from ``gen`` (on its
+    device).  As the reference's whole-model tree, a config with
+    ``tie_embeddings`` has no head matrix of its own: the head is a view
+    of the embedding, transposed."""
+    stem = init_stem(gen, cfg)
+    layers = [init_layer(gen, cfg, i) for i in range(cfg.num_layers)]
+    if cfg.tie_embeddings:
+        head = {"final_norm": L.init_rmsnorm(cfg.d_model, gen.device),
+                "head": {"w": stem["embed"]["embedding"].T}}
+    else:
+        head = init_head(gen, cfg)
+    return stem, layers, head
+
+
+# ---- serving hooks (repro_torch.serving engine) ----------------------------
+@dataclasses.dataclass(frozen=True)
+class ServingHooks:
+    """Uniform prefill/decode interface the serving engine drives, as the
+    reference's.  Caches are the per-layer list of
+    ``transformer.init_caches`` (slot axis 0 in every tensor), updated in
+    place; ``extras`` is ``None`` for the decoder-only families.
+
+    * ``prefill(params, tokens [B,S], caches, extras)`` -> (logits [B,V],
+      caches): writes the whole prefix at positions ``0..S-1``.
+    * ``decode_step(params, tokens [B,1], caches, positions [B], extras,
+      rows=None)`` -> (logits [B,V], caches): per-row write offsets, so one
+      batched call serves slots at different lengths; only the batch rows
+      ``rows`` (None: all) write their caches.
+    """
+    init_caches: Callable[[int, int], Any]          # (batch, max_len)
+    prefill: Callable[..., Any]
+    decode_step: Callable[..., Any]
+    prepare_extras: Callable[..., Any]              # (params, request)
+
+
+def serving_hooks(cfg: ModelConfig, device=None) -> ServingHooks:
+    """The hooks of a decoder-only config of attention and Mamba2 blocks,
+    with caches on ``device``.  An enc-dec config (the audio family), MoE
+    blocks (the moe and hybrid families), MLA and modality prefix
+    embeddings are not ported and raise, naming the slice that ports
+    them."""
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: enc-dec serving waits for the enc-dec slice of "
+            f"the port (models/encdec.py)")
+    if cfg.frontend_embeds:
+        raise NotImplementedError(
+            f"{cfg.name}: modality prefix embeddings wait for the VLM "
+            f"front-end slice of the port")
+    blocks = set(flat_layer_types(cfg))
+    if not blocks <= {ATTN, MAMBA} or cfg.num_experts or cfg.use_mla:
+        raise NotImplementedError(
+            f"{cfg.name}: serving {sorted(blocks)} blocks (experts "
+            f"{cfg.num_experts}, MLA {cfg.use_mla}) waits for the MoE and "
+            f"MLA slices of the port (MoE and hybrid MoE blocks, "
+            f"deepseek-v3's latent attention); dense attention and Mamba2 "
+            f"blocks serve")
+
+    def init_caches(batch, max_len):
+        return T.init_caches(cfg, batch, max_len, device)
+
+    def prepare_extras(params, req):
+        del params, req
+        return None
+
+    def prefill(params, tokens, caches, extras):
+        del extras
+        logits, caches = T.prefill(params, cfg, tokens, caches)
+        return logits[:, -1, :], caches
+
+    def decode_step(params, tokens, caches, positions, extras, rows=None):
+        del extras
+        logits, caches = T.decode_step(params, cfg, tokens, caches,
+                                       cache_index=positions, rows=rows)
+        return logits[:, -1, :], caches
+
+    return ServingHooks(init_caches=init_caches, prefill=prefill,
+                        decode_step=decode_step,
+                        prepare_extras=prepare_extras)
 
 
 def tiny_config(family: str = "dense", **kw) -> ModelConfig:

@@ -6,8 +6,8 @@ evaluation), a shared JSON metrics schema (:mod:`.metrics`) and a library of
 named scenarios (:mod:`.library`), as ``repro.scenarios`` (the JAX package)
 has them, and the trace fuzzer (:mod:`.fuzz`: random legal traces in
 analytic, cluster and kernel modes, the shrinker, detection-chaos cases and
-the detector-only sweep).  The serving runner (``serve``) is not ported
-yet; it waits for the port's serving plane.
+the detector-only sweep), and the serving runner (:mod:`.serve`: the same
+traces against the port's ``ServingEngine``).
 
 Quick use::
 
@@ -29,6 +29,7 @@ from .library import SCENARIOS, get_scenario
 from .metrics import MetricsCollector, ScenarioResult
 from .runner import (AnalyticScenarioRunner, ClusterScenarioRunner,
                      run_scenario)
+from .serve import ServeScenarioRunner, ServeWorkload, run_serve_scenario
 from .spec import (AnalyticWorkload, ClusterWorkload, Scenario,
                    node_shrink_cells, validate_event_legality)
 
@@ -37,9 +38,9 @@ __all__ = [
     "ChaosCase", "ClusterScenarioRunner", "ClusterView", "ClusterWorkload",
     "DetectionChaosRunner", "FailureDomainMap", "FuzzCase", "GroupDelta",
     "MetricsCollector", "POLICY_NAMES", "SCENARIOS", "Scenario",
-    "ScenarioResult", "get_scenario", "make_analytic_case", "make_case",
+    "ScenarioResult", "ServeScenarioRunner", "ServeWorkload", "get_scenario", "make_analytic_case", "make_case",
     "make_chaos_case", "make_cluster_case", "make_kernel_case", "make_policy",
     "node_shrink_cells", "run_case", "run_chaos_case", "run_detector_chaos",
-    "run_scenario", "shrink_case", "trace_is_legal",
+    "run_scenario", "run_serve_scenario", "shrink_case", "trace_is_legal",
     "validate_event_legality",
 ]

@@ -3,7 +3,9 @@
 ``jax.random`` and ``torch.Generator`` give different numbers from one seed,
 so a twin run starts both packages from the same weights: the reference's
 ``(stem, layers, head)`` as numpy arrays, turned into the port's dicts of
-tensors by :func:`params_from_numpy`.
+tensors by :func:`params_from_numpy`, or the reference's stacked
+whole-model tree (``repro.models.transformer.init_params``, what its
+serving engine takes) by :func:`params_from_stacked`.
 """
 from __future__ import annotations
 
@@ -46,3 +48,26 @@ def params_to_numpy(stem, layers, head) -> Tuple[Any, List[Any], Any]:
     conv = lambda t: t.detach().cpu().float().numpy() \
         if t.dtype == torch.bfloat16 else t.detach().cpu().numpy().copy()  # noqa: E731
     return _map(stem, conv), list(_map(list(layers), conv)), _map(head, conv)
+
+
+def params_from_stacked(cfg, params, device) -> Tuple[Any, List[Any], Any]:
+    """The reference's stacked whole-model tree -> the port's
+    ``(stem, layers, head)`` on ``device``.  The tree holds ``embed``,
+    ``segments`` (per segment of ``cfg.block_pattern()``, per pattern
+    position, each leaf with a leading ``repeats`` axis), ``final_norm``
+    and, unless ``cfg.tie_embeddings``, ``head``.  Layer ``r * len(pat) +
+    i`` of a segment is repeat ``r`` of pattern position ``i``; a tied
+    head is the embedding's transposed view, as ``registry.init_model``
+    makes it."""
+    conv = lambda a: _to_tensor(np.asarray(a), device)      # noqa: E731
+    stem = {"embed": _map(params["embed"], conv)}
+    layers: List[Any] = []
+    for (pat, rep), seg in zip(cfg.block_pattern(), params["segments"]):
+        for r in range(rep):
+            for i in range(len(pat)):
+                layers.append(_map(seg[i], lambda a: conv(np.asarray(a)[r])))
+    w = stem["embed"]["embedding"].T if cfg.tie_embeddings \
+        else conv(params["head"]["w"])
+    head = {"final_norm": _map(params["final_norm"], conv),
+            "head": {"w": w}}
+    return stem, layers, head

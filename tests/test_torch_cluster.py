@@ -105,13 +105,18 @@ def test_unported_options_and_recovery_raise():
     assert set(rec) == set(_recovery_record())
     assert cl.recoveries == [rec] and cl.stages[1].dp_ranks == [1]
     # the ssm family trains; its decode and prefill-with-state branches
-    # wait for the serving slice
-    from repro_torch.models.mamba import apply_mamba
+    # run on the cluster's layers (the serving slice), a prefill resumed
+    # from a carried state raises
+    from repro_torch.models.mamba import apply_mamba, init_mamba_state
     ssm = VirtualCluster(tiny_config("ssm", num_layers=2), 2, 2,
                          device="cpu", **KW)
     p = ssm.layer_params[0]["mamba"]
-    state = {"ssm": None, "conv": None}
     for seq in (1, 8):              # single-token decode, prefill-with-state
-        with pytest.raises(NotImplementedError, match="serving slice"):
-            apply_mamba(p, ssm.cfg, torch.zeros(1, seq, ssm.cfg.d_model),
-                        state=state)
+        state = init_mamba_state(ssm.cfg, 1)
+        y, out = apply_mamba(p, ssm.cfg, torch.ones(1, seq, ssm.cfg.d_model),
+                             state=state, cache_index=0)
+        assert out is state and y.shape == (1, seq, ssm.cfg.d_model)
+        assert state["ssm"].any() and torch.isfinite(y).all()
+    with pytest.raises(NotImplementedError, match="carried SSM state"):
+        apply_mamba(p, ssm.cfg, torch.ones(1, 8, ssm.cfg.d_model),
+                    state=init_mamba_state(ssm.cfg, 1), cache_index=3)

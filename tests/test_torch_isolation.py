@@ -14,6 +14,7 @@ from repro_torch.kernels import _build, ops, ref
 from repro_torch.core.cluster import VirtualCluster
 from repro_torch.models.registry import tiny_config
 from repro_torch.scenarios import make_case
+from repro_torch.serving import ServingEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -29,7 +30,7 @@ for name in names:
 import chip_smoke
 import importlib.util
 for path in ("examples/torch_quickstart.py", "examples/torch_elastic_train.py",
-             "benchmarks/torch_fuzz_soak.py"):
+             "examples/torch_serve.py", "benchmarks/torch_fuzz_soak.py"):
     spec = importlib.util.spec_from_file_location(path.replace("/", "_"),
                                                   path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -54,6 +55,13 @@ def test_cluster_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         VirtualCluster(tiny_config("dense", num_layers=2), 2, 2,
                        global_batch=8, num_micro=2, seq_len=16)
+
+
+@pytest.mark.parametrize("mode", ["numeric", "synthetic"])
+def test_serving_engine_defaults_to_the_card(mode, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(tiny_config("dense", num_layers=2), mode=mode)
 
 
 @pytest.mark.parametrize("mode", ["cluster", "kernel", "chaos"])
@@ -102,6 +110,45 @@ def test_wrappers_never_give_a_cuda_tensor_to_the_plain_version(monkeypatch):
                  x[:, :, :1], chunk=4)
     ops.dropout(x, (1, 2), torch.zeros(2, dtype=torch.int32), 0.1)
     assert calls == ["rmsnorm", "flash", "adam", "ssd", "dropout"]
+
+
+def test_final_state_scan_launches_the_kernel(monkeypatch):
+    calls = _fake_card(monkeypatch)
+    monkeypatch.setattr(
+        ops, "ssd_scan_cuda",
+        lambda x, dt, A, B, C, chunk, final=False: calls.append(
+            ("ssd", final)) or (x, torch.zeros(2, 4, 16, 1)))
+    x = torch.zeros(2, 8, 4, 16)
+    y, state = ops.ssd_scan(x, torch.ones(2, 8, 4), -torch.ones(4),
+                            x[:, :, :1], x[:, :, :1], chunk=4,
+                            return_final_state=True)
+    assert calls == [("ssd", True)] and state.shape == (2, 4, 16, 1)
+
+
+@pytest.mark.parametrize("family", ["dense", "ssm"])
+def test_serving_path_never_gives_a_cuda_tensor_to_the_plain_version(
+        family, monkeypatch):
+    """A prefill (with a ragged ssm tail) and a decode step with every
+    tensor counted as on the card: each norm, attention and scan goes to
+    its kernel, none to ``ref.py``."""
+    from repro_torch.models import registry as R, transformer as T
+    calls = _fake_card(monkeypatch)
+
+    def scan(x, dt, A, B, C, chunk, final=False):
+        calls.append("ssd")
+        st = torch.zeros(x.shape[0], x.shape[2], x.shape[3], B.shape[3])
+        return (x, st) if final else x
+
+    monkeypatch.setattr(ops, "ssd_scan_cuda", scan)
+    cfg = tiny_config(family, num_layers=2)
+    params = R.init_model(torch.Generator().manual_seed(0), cfg)
+    caches = T.init_caches(cfg, 1, 16)
+    T.prefill(params, cfg, torch.zeros(1, 11, dtype=torch.int64), caches)
+    T.decode_step(params, cfg, torch.zeros(1, 1, dtype=torch.int64), caches,
+                  torch.tensor([11]))
+    kernel = "flash" if family == "dense" else "ssd"
+    assert calls.count(kernel) == 2 and set(calls) == {"rmsnorm", kernel}
+    assert calls.count("rmsnorm") == 2 * (2 * 2 + 1)
 
 
 def test_other_devices_raise():

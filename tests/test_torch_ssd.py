@@ -314,10 +314,27 @@ def test_mamba_params_round_trip_and_flatten_exactly():
 
 
 def test_mamba_serving_functions_raise():
-    """apply_mamba's state branches: test_torch_cluster.py."""
+    """The serving functions run (held to the reference in
+    test_torch_serving_models.py); what the port still leaves out raises:
+    a prefill resumed from a carried state, and a scan from a given
+    initial state."""
     cfg = R.tiny_config("ssm")
-    x = torch.zeros(1, 1, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        M.init_mamba_state(cfg, 1)
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        M.ssd_decode_step(x, x, x, x, x, x)
+    st = M.init_mamba_state(cfg, 2)
+    assert st["ssm"].shape == (2, cfg.ssm_heads, cfg.ssm_headdim,
+                               cfg.ssm_state) and not st["ssm"].any()
+    assert st["conv"].shape == (2, cfg.conv_kernel - 1,
+                                cfg.d_inner + 2 * cfg.ssm_state)
+    h, p, n = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    y, new = M.ssd_decode_step(torch.ones(2, 1, h, p), torch.ones(2, 1, h),
+                               -torch.ones(h), torch.ones(2, 1, 1, n),
+                               torch.ones(2, 1, 1, n), st["ssm"])
+    assert y.shape == (2, 1, h, p) and torch.all(new == 1.0)
+    params = M.init_mamba(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(NotImplementedError, match="carried SSM state"):
+        M.apply_mamba(params, cfg, torch.zeros(2, 8, cfg.d_model), state=st,
+                      cache_index=torch.tensor([4, 4]))
+    x = torch.zeros(1, 8, h, p)
+    with pytest.raises(ValueError, match="initial_state"):
+        ops.ssd_scan(x, torch.ones(1, 8, h), -torch.ones(h),
+                     torch.zeros(1, 8, 1, n), torch.zeros(1, 8, 1, n),
+                     chunk=8, initial_state=torch.zeros(1, h, p, n))

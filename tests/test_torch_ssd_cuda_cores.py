@@ -206,7 +206,8 @@ def test_workspace_sizes(recorded_launches, monkeypatch, dims, sizes):
     ((_, entry, args),) = recorded_launches
     assert entry == "repro_ssd_scan"
     assert len(args) == len(_build.SIGNATURES[entry])
-    assert args[9:16] == (b, s, h, g, p, n, chunk)
+    assert args[9] is None                  # no final state: a null pointer
+    assert args[10:17] == (b, s, h, g, p, n, chunk)
 
 
 @pytest.fixture
@@ -283,9 +284,9 @@ def test_views_reach_the_kernel_in_place(recorded_launches):
     assert args[:5] == (x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                         B.data_ptr(), C.data_ptr())
     width = h * p + 2 * g * n
-    assert args[16:19] == (s * width, width, p)              # x
-    assert args[22:25] == (s * width, width, n)              # B
-    assert args[25:28] == (s * width, width, n)              # C
+    assert args[17:20] == (s * width, width, p)              # x
+    assert args[23:26] == (s * width, width, n)              # B
+    assert args[26:29] == (s * width, width, n)              # C
 
 
 # (b, s, h, g, p, n, chunk, bytes an element) -> (bytes, flops) by hand,

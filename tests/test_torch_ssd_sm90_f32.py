@@ -280,12 +280,13 @@ def test_f32_route_takes_xbc_views_in_place(recorded_launches):
     ((_, _, args),) = recorded_launches
     assert args[:5] == (x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                         B.data_ptr(), C.data_ptr())
-    assert args[10:17] == (1, s, h, g, p, n, 256)
+    assert args[10] is None                 # no final state: a null pointer
+    assert args[11:18] == (1, s, h, g, p, n, 256)
     width = h * p + 2 * g * n
-    assert args[17:20] == (s * width, width, p)              # x
-    assert args[20:23] == dt.stride()
-    assert args[23:26] == (s * width, width, n)              # B
-    assert args[26:29] == (s * width, width, n)              # C
+    assert args[18:21] == (s * width, width, p)              # x
+    assert args[21:24] == dt.stride()
+    assert args[24:27] == (s * width, width, n)              # B
+    assert args[27:30] == (s * width, width, n)              # C
 
 
 @pytest.mark.parametrize("what", ["row stride", "offset", "last stride"])
