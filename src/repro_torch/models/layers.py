@@ -132,8 +132,8 @@ def _sdpa(q, k, v, causal: bool, q_offset=None):
     Aligned self-attention (no offset, S == T) goes to the flash-attention
     kernel.  With ``q_offset`` ([B] position of q[:, 0] within the keys:
     attention over a KV cache) it is the reference's plain form, keys past
-    each query's position masked, but with the q·k products taken in
-    float32 (the reference rounds them to q's dtype first: bf16 there)."""
+    each query's position masked: q·k in q's dtype (float32 accumulation,
+    one rounding), then the softmax in float32."""
     S, T = q.shape[1], k.shape[1]
     if q_offset is None and S == T:
         return ops.flash_attention(q, k, v, causal=causal)
@@ -143,7 +143,7 @@ def _sdpa(q, k, v, causal: bool, q_offset=None):
     B, _, H, hd = q.shape
     Hkv = k.shape[2]
     qr = q.reshape(B, S, Hkv, H // Hkv, hd)
-    logits = torch.einsum("bskrh,btkh->bkrst", qr.float(), k.float())
+    logits = torch.einsum("bskrh,btkh->bkrst", qr, k).float()
     logits = logits * hd ** -0.5
     if causal:
         qpos = q_offset[:, None] + torch.arange(S, device=q.device)[None]

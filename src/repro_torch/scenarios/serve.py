@@ -86,12 +86,10 @@ class ServeScenarioRunner:
         engine = w.make_engine(self.policy)
         horizon = self.scenario.horizon * self.time_scale
         cfg = engine.cfg
-        frames_shape = ((16, cfg.d_model) if cfg.is_encdec else None)
         for req in poisson_arrivals(
                 w.request_rate / self.time_scale, horizon,
                 prompt_len=w.prompt_len, max_new_tokens=w.max_new_tokens,
-                vocab_size=cfg.vocab_size, seed=w.seed,
-                frames_shape=frames_shape):
+                vocab_size=cfg.vocab_size, seed=w.seed):
             engine.submit(req)
 
         for t in self.scenario.event_steps:

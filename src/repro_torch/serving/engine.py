@@ -514,11 +514,10 @@ class ServingEngine:
 def offline_generate(cfg, *, batch: int = 4, prompt_len: int = 32,
                      max_new_tokens: int = 16, seed: int = 0,
                      sampler: Optional[SamplerConfig] = None, params=None,
-                     frames_len: int = 16, device=None) -> Dict[str, Any]:
+                     device=None) -> Dict[str, Any]:
     """Batch-generate through the serving engine (single replica, offline
     SLO): the shared implementation behind ``launch/serve.py --smoke`` and
-    ``examples/torch_serve.py``.  Enc-dec archs get seeded random frames
-    (and raise: their serving is not ported)."""
+    ``examples/torch_serve.py``."""
     rng = np.random.default_rng(seed)
     engine = ServingEngine(
         cfg, n_replicas=1, slots_per_replica=batch,
@@ -529,11 +528,8 @@ def offline_generate(cfg, *, batch: int = 4, prompt_len: int = 32,
     for b in range(batch):
         prompt = rng.integers(0, cfg.vocab_size,
                               size=prompt_len).astype(np.int32)
-        frames = (rng.standard_normal((frames_len, cfg.d_model))
-                  .astype(np.float32) if cfg.is_encdec else None)
         engine.submit(Request(rid=b, arrival=0.0, prompt=prompt,
-                              max_new_tokens=max_new_tokens,
-                              encoder_frames=frames))
+                              max_new_tokens=max_new_tokens))
     engine.drain()
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)

@@ -1,5 +1,6 @@
 """Serving requests, SLOs and deterministic arrival workloads: a copy of
-``repro.serving.request`` (the JAX package), which is plain numpy.
+``repro.serving.request`` (the JAX package), which is plain numpy, without
+the enc-dec requests' encoder frames (enc-dec serving is not ported).
 
 A :class:`Request` is the serving plane's unit of work: a timestamped prompt
 plus a generation budget.  The control plane keeps the full token prefix
@@ -42,7 +43,6 @@ class Request:
     arrival: float
     prompt: np.ndarray                       # [P] int32 token ids
     max_new_tokens: int
-    encoder_frames: Optional[np.ndarray] = None   # enc-dec: [T, d] frames
 
     state: RequestState = RequestState.QUEUED
     generated: List[int] = dataclasses.field(default_factory=list)
@@ -96,11 +96,10 @@ class Request:
 
 
 def poisson_arrivals(rate: float, horizon: float, *, prompt_len: int,
-                     max_new_tokens: int, vocab_size: int, seed: int = 0,
-                     frames_shape: Optional[tuple] = None) -> List[Request]:
+                     max_new_tokens: int, vocab_size: int,
+                     seed: int = 0) -> List[Request]:
     """Deterministic request stream: seeded exponential inter-arrival gaps,
-    seeded random prompts.  ``frames_shape=(T, d)`` additionally attaches
-    encoder frames (enc-dec serving)."""
+    seeded random prompts."""
     rng = np.random.default_rng(seed)
     out: List[Request] = []
     t, rid = 0.0, 0
@@ -109,10 +108,7 @@ def poisson_arrivals(rate: float, horizon: float, *, prompt_len: int,
         if t >= horizon:
             break
         prompt = rng.integers(0, vocab_size, size=prompt_len).astype(np.int32)
-        frames = (rng.standard_normal(frames_shape).astype(np.float32)
-                  if frames_shape is not None else None)
         out.append(Request(rid=rid, arrival=t, prompt=prompt,
-                           max_new_tokens=max_new_tokens,
-                           encoder_frames=frames))
+                           max_new_tokens=max_new_tokens))
         rid += 1
     return out

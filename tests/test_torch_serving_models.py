@@ -10,7 +10,12 @@ with a seed.  Float32 throughout.  Tolerances: logits, caches and states
 tiers of ``kernels/ops.py``): the port's prefill attention is the flash
 kernel's plain version over the prompt where the reference masks the whole
 cache, and the port's prefill scan is the sequential oracle where the
-reference runs the chunked form, so the sums run in other orders.
+reference runs the chunked form, so the sums run in other orders.  In
+bf16: the cached attention's output bitwise (q·k rounded to bf16 as the
+reference rounds it), and the whole model's logits per row within ``BF16``:
+the bf16 tier's rtol (1e-2, ``flash_attention_bf16``) for each of the
+2L + 1 roundings of the residual stream, adding as a random walk, times the
+row's max |logit|.
 """
 import numpy as np
 import pytest
@@ -19,9 +24,11 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+from repro.models import layers as JL  # noqa: E402
 from repro.models import registry as JR  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro_torch import configs  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import registry as R  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.weights import params_from_stacked  # noqa: E402
@@ -30,6 +37,8 @@ from _torch_threads import torch_one_thread  # noqa: F401,E402
 
 FWD = dict(rtol=1e-4, atol=1e-5)
 MAX_LEN = 24
+BF16_LAYERS = 2
+BF16 = dict(rtol=1e-2 * np.sqrt(2 * BF16_LAYERS + 1), atol=1e-4)
 
 FAMILIES = {
     "dense-gqa": ("dense", dict(num_layers=2, d_model=32, num_heads=4,
@@ -154,6 +163,59 @@ def test_decode_rows_write_only_their_caches(twins):
         for k in c:
             torch.testing.assert_close(c[k][0], b[k][0], rtol=0, atol=0)
             assert not torch.equal(c[k][1], b[k][1])
+
+
+@pytest.mark.parametrize("scale", [1.0, 4.0, 8.0])
+def test_bf16_cached_attention_rounds_like_the_reference(scale):
+    """bf16 q, k, v over a cache at three per-row offsets: the port's
+    cached branch equals the reference's bit for bit (q·k rounded once to
+    bf16, then the float32 softmax).  ``scale`` sets |q·k|, so that a
+    float32 q·k would land a bf16 ulp or more away."""
+    rng = np.random.default_rng(4)
+    B, H, Hkv, hd, T_ = 3, 4, 2, 32, 40
+    q = rng.standard_normal((B, 1, H, hd)).astype(np.float32) * scale
+    k = rng.standard_normal((B, T_, Hkv, hd)).astype(np.float32) * scale
+    v = rng.standard_normal((B, T_, Hkv, hd)).astype(np.float32)
+    off = np.array([5, 17, 39])
+    want = JL._sdpa(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                    True, q_offset=jnp.asarray(off, jnp.int32))
+    got = L._sdpa(*(torch.as_tensor(a).bfloat16() for a in (q, k, v)),
+                  True, q_offset=torch.as_tensor(off))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+def test_bf16_prefill_and_decode_logits():
+    """Tiny dense GQA in bf16 from the same stacked weights: the prefill
+    and four batched decode steps' logits within ``BF16`` of each row's
+    max |logit|."""
+    kw = dict(num_layers=BF16_LAYERS, d_model=32, num_heads=4,
+              num_kv_heads=2, d_ff=64, vocab_size=128, dtype="bfloat16")
+    cfg_j = JR.tiny_config("dense", dropout_rate=0.0, **kw)
+    cfg_t = R.tiny_config("dense", dropout_rate=0.0, **kw)
+    params_j = JT.init_params(jax.random.key(0), cfg_j)
+    params_t = params_from_stacked(cfg_t, params_j, "cpu")
+    rng = np.random.default_rng(5)
+    tok = rng.integers(0, cfg_t.vocab_size, size=(2, 9)).astype(np.int32)
+    lj, cj = JT.prefill(params_j, cfg_j, jnp.asarray(tok),
+                        JT.init_caches(cfg_j, 2, MAX_LEN))
+    lt, ct = T.prefill(params_t, cfg_t, torch.as_tensor(tok),
+                       T.init_caches(cfg_t, 2, MAX_LEN))
+    pos = np.array([9, 9])
+    for step in range(5):
+        got = lt.float().numpy().reshape(2, -1)
+        want = np.asarray(lj.astype(jnp.float32)).reshape(2, -1)
+        for row in range(2):
+            err = np.abs(got[row] - want[row]).max()
+            bound = BF16["rtol"] * np.abs(want[row]).max() + BF16["atol"]
+            assert err <= bound, (step, row, err, bound)
+        tok = rng.integers(0, cfg_t.vocab_size, size=(2, 1)).astype(np.int32)
+        lj, cj = JT.decode_step(params_j, cfg_j, jnp.asarray(tok), cj,
+                                jnp.asarray(pos, jnp.int32))
+        lt, ct = T.decode_step(params_t, cfg_t, torch.as_tensor(tok), ct,
+                               torch.as_tensor(pos))
+        pos = pos + 1
 
 
 @pytest.mark.parametrize("family,kw,match", [
