@@ -31,7 +31,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    bidirectional, a peaked softmax and strided projection views, with the
    CUDA-core kernel on the MHA case's inputs; bf16 on the wgmma route MHA
    and GQA, plus head_dim 64, ragged S 4000, bidirectional, a peaked
-   softmax and strided projection views; fused AdamW bitwise against the numpy
+   softmax and strided projection views, and llama4-scout's attention
+   ([1, 1024, 40, 128], 8 kv heads, causal) timed beside SDPA; fused
+   AdamW bitwise against the numpy
    oracle over 3 steps, at n % 4 != 0 and on views off a 16-byte boundary;
    the SSD scan at [1, 4096, 80, 64] with n 128, chunk 256, against the
    sequential oracle: bf16 on the bf16 tensor-core route, fp32 on the
@@ -89,7 +91,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    float32 tiny twins at dropout 0.1 (dense under both ``rng_mode``s, ssm,
    and the dense recovery sequence), within the same bounds, with the
    dropout-free twins' launches and exactly 192 / 192 / 96 / 1280 of the
-   dropout kernel; and the
+   dropout kernel; the MoE family's float32 twins (moe at capacity factor
+   1.25, where tokens drop, moe with row dispatch, hybrid: attention,
+   Mamba2 and Mamba2-MoE blocks on the 3xTF32 flash and CUDA-core SSD
+   routes) and the moe recovery sequence at capacity factor 16, the CPU
+   twin replaying the card's experts where a near-tie of the router's
+   float32 input fell the other way (``route_twin``); and the
    main-path kernels at the shapes recovery gives them (batch-2 items:
    rmsnorm on 8192 rows of 2560 and 5120, the SSD scan at
    [2, 4096, 80, 64]) and rmsnorm in float32 at phase 8's [4096, 2560]
@@ -105,8 +112,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``torch.profiler``: device time by kind (each hand-written kernel,
    cuBLAS products, other ATen kernels, memcpy by direction) and the
    device-busy share from the step's start to the snapshot's;
-6. the ssm main path: the same on mamba2-2.7b, depth cut to 4 layers,
-   its cost model given the H100 data-sheet figures (peak bf16 rate, HBM
+6. the ssm main path: the same on mamba2-2.7b, depth cut to 4 layers, 2
+   steps (cut from 3 for the MoE slice's time), its cost model given the
+   H100 data-sheet figures (peak bf16 rate, HBM
    rate and size; the other ``HardwareSpec`` fields keep the reference's
    model defaults);
 7. recovery on that cluster, between train steps: a fail-stop found by the
@@ -119,8 +127,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    migration, dataflow; ring re-bootstrap inside remap and migration),
    its total and peak device memory beside the record's modeled seconds;
 8. the float32 ssm path: mamba2-2.7b at its widths in float32, depth cut
-   to 2 layers, for 2 steps as phase 5 runs them, every SSD launch on the
-   float32 tensor-core route;
+   to 2 layers, for one step (cut from 2 for the MoE slice's time), every
+   SSD launch on the float32 tensor-core route;
 9. the scenario engine on the card (``repro_torch.scenarios``): the
    kernel corpus of ``kernels/check.py`` (flash GQA causal and
    bidirectional at head_dim 32 on the 3xTF32 route, rmsnorm, the SSD scan
@@ -133,7 +141,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    every flash launch on the 3xTF32 route, dropout launches exactly where
    the rate is 0.1), printing losses, recoveries, modeled MTTR, the final
    DP width and the wall time; then shrink_regrow's trace shape (scale-in of
-   rank (1, 1) at step 1, rejoin at step 2, horizon 4) on mamba2-2.7b at
+   rank (1, 1) at step 1, rejoin at step 2, horizon 3, cut from 4 for the
+   MoE slice's time) on mamba2-2.7b at
    its widths in bf16, depth cut to 2 layers, through
    ``ClusterScenarioRunner`` with the dataflow, RNG and MTTR checkers and
    the ring snapshot equal to the device shards after every event and
@@ -161,14 +170,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    gated on finite losses and two recoveries), launches exact; the
    detector-only chaos sweep over 150 seeds; and the phase's wall time;
 11. the serving plane (``repro_torch.serving``): the tiny dense (3xTF32
-   flash route) and ssm (CUDA-core SSD route, ragged prefills) engines on
-   the card beside CPU twins of the port from the same weights, greedy and
+   flash route), ssm (CUDA-core SSD route, ragged prefills), moe and
+   hybrid engines on the card beside CPU twins of the port from the same
+   weights, greedy and
    top-k, undisturbed, a SCALE_IN after two decode ticks (migration), a
    FAIL_STOP (rebuild) and the drop policy: stats, event logs, summaries
    and streams equal, logits within the kernel-consistency bounds, SCALE_IN
-   streams equal to the undisturbed run's; then codeqwen1.5-7b (32 layers,
-   8.19 B params) and mamba2-2.7b (64 layers, 2.70 B) at their published
-   widths and depth in bf16, random weights, 2 replicas x 4 slots, 8
+   streams equal to the undisturbed run's where routing cannot depend on
+   batch mates; then codeqwen1.5-7b (32 layers, 8.19 B params) and
+   mamba2-2.7b (64 layers, 2.70 B) at their published widths and depth,
+   and llama4-scout-17b-a16e at its published widths cut to 2 layers
+   (6.47 B, capacity factor 16), in bf16, random weights, 2 replicas x 4
+   slots, 8
    requests of 1024 prompt and 64 new tokens (four arriving after the
    event): greedy undisturbed, greedy and top-k (temperature 0.7, top_k 40)
    with a SCALE_IN of replica 0 after two decode ticks, every in-flight
@@ -176,7 +189,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    source, the streams the undisturbed run's; the engine's bf16 logits
    against a full-sequence forward (held; codeqwen at its 32 layers,
    mamba2 at its first 8 layers, whose random 64 amplify rounding past any
-   bf16 bound: see ``SERVE_GATE_LAYERS``), every block decoding from the
+   bf16 bound: see ``SERVE_GATE_LAYERS``; llama4-scout's at its 2, a
+   position whose route flipped on a near-tie printed, not held),
+   every block decoding from the
    forward's inputs in float32 (held); prefill ms,
    decode ms a batched step, tokens/s, migration wall seconds, KV bytes
    moved, peak device memory; launches exact; then ``launch/serve.py
@@ -184,10 +199,13 @@ Phases, in order; any failure exits non-zero and prints no result:
 12. a JSON line with every kernel's numbers (each record's ``shape`` names
    the inputs its times were taken on), one with every recovery's, one
    with every scenario's, one with every fuzz run's, one with the serving
-   phase's, then the result line.
+   phase's, one with each phase's wall seconds and, of them, the ring
+   snapshot checks' (``PhaseClock``), then the result line.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import gc
 import importlib.util
@@ -197,6 +215,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -205,7 +224,8 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import codeqwen1p5_7b, mamba2_2p7b  # noqa: E402
+from repro_torch.configs import (codeqwen1p5_7b,  # noqa: E402
+                                 llama4_scout_17b_a16e, mamba2_2p7b)
 from repro_torch.core.cluster import VirtualCluster  # noqa: E402
 from repro_torch.core.cost_model import HardwareSpec  # noqa: E402
 from repro_torch.core.events import ElasticEvent, EventKind  # noqa: E402
@@ -226,6 +246,9 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
 from repro_torch.kernels import threefry  # noqa: E402
 from repro_torch.kernels.threefry import threefry_dropout_cuda  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
+from repro_torch.models.config import (ATTN, ATTN_MOE, MAMBA,  # noqa: E402
+                                       MAMBA_MOE)
 from repro_torch.models import registry as R  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.layers import RngCtx  # noqa: E402
@@ -305,6 +328,11 @@ BF16_MMA_TWINS = {"bf16 hd16": dict(dtype="bfloat16"),
 # the float32 tiny ssm twin on the float32 tensor-core SSD route
 # (ssd_scan_sm90_f32): the bf16 ssm twin's widths in float32
 F32_SM90_SSM_TWIN = dict(BF16_TWINS["ssm"], dtype="float32")
+# the tiny moe twin with row-local dispatch (capacity per sample row)
+MOE_ROW_TWIN = dict(moe_row_dispatch=True)
+# the MoE family's float32 twins of phase 4: (family, twin)
+MOE_TWINS = (("moe", "float32"), ("moe", "float32 row dispatch"),
+             ("hybrid", "float32"))
 
 SOURCES = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -392,19 +420,22 @@ DENSE_DROPOUT_LAUNCHES = {**DENSE_LAUNCHES, "threefry_dropout": 64}
 # the dense path without dropout takes one step (cut from 2 for phase 11's
 # time): half of DENSE_LAUNCHES
 DENSE_STEP_LAUNCHES = {k: v // 2 for k, v in DENSE_LAUNCHES.items()}
-SSM_LAUNCHES = {"rmsnorm": 108, "flash_attention": 0, "fused_adam": 6,
+# the ssm path takes 2 steps (cut from 3 for the MoE slice's time): per
+# item one SSD scan a layer, 2 rmsnorms a layer and the final norm
+SSM_LAUNCHES = {"rmsnorm": 72, "flash_attention": 0, "fused_adam": 4,
                 "ssd_scan": 0, "flash_attention_sm90": 0,
-                "ssd_scan_sm90": 48, "flash_attention_tf32": 0,
+                "ssd_scan_sm90": 32, "flash_attention_tf32": 0,
                 "ssd_scan_sm90_f32": 0, "flash_attention_bf16_mma": 0,
                 "threefry_dropout": 0}
-# exact launches over the 2 steps of the float32 mamba2 path (2 layers, 4
-# items a step): per item one SSD scan a layer, two rmsnorms a layer (the
-# block's norm and the gated out_norm) and the final norm; one fused AdamW
-# per stage a step.  Every SSD launch takes the float32 tensor-core kernel.
-SSM_F32_LAUNCHES = {"rmsnorm": 40, "flash_attention": 0, "fused_adam": 4,
+# exact launches over the step of the float32 mamba2 path (2 layers, 4
+# items a step; 1 step, cut from 2 for the MoE slice's time): per item one
+# SSD scan a layer, two rmsnorms a layer (the block's norm and the gated
+# out_norm) and the final norm; one fused AdamW per stage a step.  Every
+# SSD launch takes the float32 tensor-core kernel.
+SSM_F32_LAUNCHES = {"rmsnorm": 20, "flash_attention": 0, "fused_adam": 2,
                     "ssd_scan": 0, "flash_attention_sm90": 0,
                     "ssd_scan_sm90": 0, "flash_attention_tf32": 0,
-                    "ssd_scan_sm90_f32": 16, "flash_attention_bf16_mma": 0,
+                    "ssd_scan_sm90_f32": 8, "flash_attention_bf16_mma": 0,
                     "threefry_dropout": 0}
 # exact launches over the 4 steps of phase 7: after a shrink each step is 2
 # items of batch 2, after the scale-out 4 items of batch 1
@@ -1017,6 +1048,7 @@ def kernel_flash(gen) -> dict:
                 f"{plain:.3f} library_ms {med['library']:.4f} "
                 f"(F.scaled_dot_product_attention) bound_ms {b:.4f} ({by})")
         del q, k, v, o, want, qt, kt, vt
+    recs["flash_attention_sm90"]["llama4_scout"] = flash_llama4_shape(gen)
     # the bf16 mma.sync route's record: head_dim 32, head_dim 16 beside it;
     # the CUDA-core kernel's: its own times on the same bf16 inputs, and on
     # the float32 main case's
@@ -1029,6 +1061,56 @@ def kernel_flash(gen) -> dict:
         library_ms=main32["library_ms"],
         bf16_hd16_ms=small[16]["cuda_core_ms"], **cores_fp32)
     return recs
+
+
+def flash_llama4_shape(gen) -> dict:
+    """The bf16 wgmma route at llama4-scout's attention (its published
+    widths: 40 query heads over 8 kv heads, a group of 5, head_dim 128; a
+    1024-token prefill, causal) against the plain version under the bf16
+    tier, timed beside ``F.scaled_dot_product_attention`` (``enable_gqa``)
+    in 5 interleaved rounds of 10.  Returns its record."""
+    B, S, H, Hkv, d = 1, 1024, 40, 8, 128
+    q = torch.randn(B, S, H, d, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(B, S, Hkv, d, generator=gen, device="cuda")
+            .bfloat16() for _ in "kv")
+    check(uses_sm90(q.dtype, d), "llama4-scout's attention must take the "
+                                 "wgmma flash route")
+    before = _build.LAUNCHES["flash_attention_sm90"]
+    o = flash_attention_cuda(q, k, v, True)
+    check(_build.LAUNCHES["flash_attention_sm90"] == before + 1,
+          "flash_attention_cuda did not launch flash_attention_sm90 once")
+    tier = ops.TOLERANCE_TIERS["flash_attention_bf16"]
+    ok, err = within(o, ref.gqa_attention_reference(q, k, v, causal=True),
+                     tier)
+    name = (f"flash sm90 bf16 S={S} H={H} Hkv={Hkv} hd={d} causal "
+            f"(llama4-scout)")
+    log(f"{name}: max_abs_err {err:.3e} tier flash_attention_bf16 ok={ok}")
+    check(ok, f"{name} outside flash_attention_bf16")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    med = interleaved_medians(
+        {"kernel": lambda: flash_attention_cuda(q, k, v, True),
+         "library": lambda: F.scaled_dot_product_attention(
+             qt, kt, vt, is_causal=True, enable_gqa=True)}, 5, 10)
+    plain = time_ms(lambda: ref.gqa_attention_reference(q, k, v,
+                                                        causal=True), 3)
+    pairs = B * H * S * (S + 1) // 2
+    nbytes = (2 * B * S * H * d + 2 * B * S * Hkv * d) * q.element_size()
+    b, by = bound(nbytes, 4 * d * pairs, q.dtype)
+    # a launch this short is near the host's dispatch time, so the
+    # profiler's device time a launch stands beside the events' times
+    dev = {which: device_us_by_kernel(fn, 10) for which, fn in (
+        ("kernel", lambda: flash_attention_cuda(q, k, v, True)),
+        ("library", lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)))}
+    log(f"  {name}: ms {med['kernel']:.4f} (median of 5 interleaved rounds "
+        f"of 10) plain_ms {plain:.3f} library_ms {med['library']:.4f} "
+        f"(F.scaled_dot_product_attention, enable_gqa) bound_ms {b:.4f} "
+        f"({by}); device us a launch (torch.profiler): kernel "
+        f"{dev['kernel']}, library {dev['library']}")
+    return dict(shape=f"bfloat16 q [{B}, {S}, {H}, {d}], k, v [{B}, {S}, "
+                      f"{Hkv}, {d}] causal", max_abs_err=err,
+                ms=med["kernel"], plain_ms=plain, bound_ms=b, bound_by=by,
+                library_ms=med["library"], device_us_by_kernel=dev)
 
 
 def kernel_adam(gen, stage_elems: int) -> dict:
@@ -1631,16 +1713,20 @@ def phase_tiny_twin(family: str, twin: str = "float32",
     bounds; the bf16 configuration of ``BF16_TWINS`` (``twin="bf16"``, seq
     128) or of ``BF16_MMA_TWINS`` (``twin="bf16 hd16"``, ``"bf16 hd32"``,
     dense, seq 128) within the bf16 twins' bound; or ``F32_SM90_SSM_TWIN``
-    (``twin="float32 sm90"``, seq 128) within the float32 bounds; at
-    ``dropout_rate`` under ``rng_mode``.  Returns the card's launch
+    (``twin="float32 sm90"``, seq 128) or ``MOE_ROW_TWIN`` (``twin="float32
+    row dispatch"``, seq 16) within the float32 bounds; at ``dropout_rate``
+    under ``rng_mode``.  An MoE config's twin replays the card's experts
+    on the CPU where a near-tie flipped (``route_twin``) and counts the
+    pairs the card kept: some drop exactly when the capacity factor gives
+    an expert fewer places than tokens.  Returns the card's launch
     counts."""
     name = f"tiny {family} twin ({twin}" + (
         f", dropout {dropout_rate} {rng_mode})" if dropout_rate else ")")
     bf16 = twin.startswith("bf16")
-    cfg = tiny_config(family, **{"float32": {}, "bf16": BF16_TWINS[family],
-                                 "float32 sm90": F32_SM90_SSM_TWIN,
-                                 **BF16_MMA_TWINS}[twin],
-                      dropout_rate=dropout_rate)
+    over = BF16_TWINS[family] if twin == "bf16" else {
+        "float32": {}, "float32 row dispatch": MOE_ROW_TWIN,
+        "float32 sm90": F32_SM90_SSM_TWIN, **BF16_MMA_TWINS}[twin]
+    cfg = tiny_config(family, **over, dropout_rate=dropout_rate)
     if twin in BF16_MMA_TWINS:
         check(f"hd{cfg.head_dim}" == twin.split()[1]
               and (cfg.num_heads, cfg.num_kv_heads) == (4, 2),
@@ -1657,27 +1743,115 @@ def phase_tiny_twin(family: str, twin: str = "float32",
     loss_ok = (lambda a, b: abs(a - b) <= BF16_LOSS_RTOL * abs(b)) if bf16 \
         else KCC.loss_within
     rtol = BF16_PARAM_RTOL if bf16 else KCC.PARAM_RTOL
+    kept, flips = [], []
     _build.reset_launch_counts()
-    for step in range(3):
-        a, b = gpu.train_step(), cpu.train_step()
-        check(math.isfinite(a) and loss_ok(a, b),
-              f"{name} step {step}: loss {a!r} vs cpu {b!r}")
-        atol = KCC.param_atol(gpu)
-        worst = 0.0
-        for sg, sc in zip(gpu.stages, cpu.stages):
-            check(sg.sizes == sc.sizes and sg.entries == sc.entries,
-                  f"{name} stage structure differs")
-            for c in ("master", "mu", "nu"):
-                x, y = sg.full(c).cpu(), sc.full(c)
-                check(torch.allclose(x, y, rtol=rtol, atol=atol),
-                      f"{name} step {step}: stage {c} beyond bounds")
-                worst = max(worst, float((x - y).abs().max()))
-        log(f"{name} step {step}: loss card {a:.7f} cpu {b:.7f} "
-            f"state max_abs_diff {worst:.3e} (atol {atol:.1e}, rtol "
-            f"{rtol:.2e})")
+    with route_twin(flips), counting_kept(kept):
+        for step in range(3):
+            twin_step(name, step, gpu, cpu, loss_ok, rtol)
     counts = dict(_build.LAUNCHES)
+    log_flips(name, flips)
+    if cfg.num_experts:
+        k, n = map(sum, zip(*kept))
+        log(f"{name}: the card's MoE layers kept {k} of {n} routed (token, "
+            f"expert) pairs (capacity factor {cfg.capacity_factor})")
+        check((k < n) == (cfg.capacity_factor * cfg.top_k < cfg.num_experts),
+              f"{name}: kept {k} of {n} pairs")
     log(f"{name} launches on the card: {counts}")
     return counts
+
+
+def counting_kept(out: list):
+    """While open, every MoE routing on the card appends (kept pairs,
+    routed pairs)."""
+    def count(logits, r):
+        if r["keep"].is_cuda:
+            out.append((int(r["keep"].sum()), r["keep"].numel()))
+    return watching_routes(count)
+
+
+# the largest card-vs-CPU difference of a token's router logits, as a share
+# of its largest |logit|, at which a twin accepts that the two devices chose
+# other experts: the bf16 tier's rtol (one bf16 rounding).  Rounding and the
+# twins' state drift move them ~1e-6 apart; a routing fault (another
+# token's row, a wrong expert) moves them by O(1)
+ROUTE_FLIP_RTOL = ops.TOLERANCE_TIERS["flash_attention_bf16"]["rtol"]
+
+
+@contextlib.contextmanager
+def route_twin(flips: list):
+    """While open, every MoE routing on the card queues its experts and
+    router logits, and the CPU twin's next routing (the same call of the
+    same sequence: the card's run goes first) compares its own top-k with
+    them.  The two devices round the router's float32 input differently,
+    so a token whose top-k boundary lies that close may take other experts
+    on each (the reference's semantics, not a fault): the CPU then routes
+    to the card's experts (``moe.route``'s ``experts``), and the token is
+    appended to ``flips`` with the CPU's smallest gap among its top k + 1
+    logits and the devices' largest logit difference, which must be within
+    ``ROUTE_FLIP_RTOL`` of its largest |logit|.  Every queued routing must
+    be replayed."""
+    queue = collections.deque()
+    orig = moe.route
+
+    def twin(cfg, logits, cap, layout_cap, experts=None):
+        if logits.is_cuda:
+            r = orig(cfg, logits, cap, layout_cap, experts)
+            queue.append((r["gate_idx"].cpu(), logits.detach().cpu()))
+            return r
+        check(bool(queue), "the CPU twin routed a call the card did not")
+        idx, card = queue.popleft()
+        r = orig(cfg, logits, cap, layout_cap, experts)
+        if torch.equal(r["gate_idx"], idx):
+            return r
+        own = logits.detach()
+        for g, t in (r["gate_idx"] != idx).any(-1).nonzero().tolist():
+            top = own[g, t].topk(cfg.top_k + 1).values
+            diff = float((own[g, t] - card[g, t]).abs().max())
+            scale = float(own[g, t].abs().max())
+            flips.append(dict(gap=float((top[:-1] - top[1:]).min()),
+                              logit_rel_diff=diff / scale,
+                              card=idx[g, t].tolist(),
+                              cpu=r["gate_idx"][g, t].tolist()))
+            check(diff <= ROUTE_FLIP_RTOL * scale,
+                  f"card and CPU router logits {diff / scale:.3e} of max "
+                  f"|logit| apart at a token they route differently: not a "
+                  f"near-tie")
+        return orig(cfg, logits, cap, layout_cap, idx)
+    moe.route = twin
+    try:
+        yield
+    finally:
+        moe.route = orig
+    check(not queue, f"{len(queue)} card routings the CPU twin never made")
+
+
+def log_flips(name: str, flips: list) -> None:
+    if flips:
+        log(f"{name}: {len(flips)} token(s) routed on a near-tie, the CPU "
+            f"twin replaying the card's experts: " + "; ".join(
+                f"card {f['card']} cpu {f['cpu']}, gap {f['gap']:.3e}, "
+                f"logits {f['logit_rel_diff']:.3e} apart" for f in flips))
+
+
+def twin_step(name: str, step: int, gpu, cpu, loss_ok, rtol) -> None:
+    """One train step of the card cluster and its CPU twin, the loss and
+    every stage's master/mu/nu held to the twins' bounds."""
+    a, b = gpu.train_step(), cpu.train_step()
+    check(math.isfinite(a) and loss_ok(a, b),
+          f"{name} step {step}: loss {a!r} vs cpu {b!r}")
+    atol = KCC.param_atol(gpu)
+    worst = 0.0
+    for sg, sc in zip(gpu.stages, cpu.stages):
+        check(sg.sizes == sc.sizes and sg.entries == sc.entries,
+              f"{name} stage structure differs")
+        for c in ("master", "mu", "nu"):
+            x, y = sg.full(c).cpu(), sc.full(c)
+            check(torch.allclose(x, y, rtol=rtol, atol=atol),
+                  f"{name} step {step}: stage {c} beyond bounds")
+            worst = max(worst, float((x - y).abs().max()))
+    log(f"{name} step {step}: loss card {a:.7f} cpu {b:.7f} "
+        f"state max_abs_diff {worst:.3e} (atol {atol:.1e}, rtol "
+        f"{rtol:.2e})")
 
 
 def _pin_planner_clock(cl: VirtualCluster, remaps: list) -> None:
@@ -1718,15 +1892,16 @@ def _twin_op(cl: VirtualCluster, op: tuple):
 
 
 def phase_tiny_recovery_twin(family: str, dropout_rate: float = 0.0,
-                             rng_mode: str = "reshard") -> dict:
+                             rng_mode: str = "reshard", **cfg_kw) -> dict:
     """The tiny float32 cluster (dp=4, pp=2, global batch 16) on the card
     and on the CPU through ``TWIN_SEQUENCE``: records, remap plans,
     integrity tiers and layouts equal exactly, losses and state within the
     kernel-consistency bounds after every step; at ``dropout_rate`` under
-    ``rng_mode`` (0.1 is the reference's elastic test configuration).
-    Returns the card's launch counts."""
+    ``rng_mode`` (0.1 is the reference's elastic test configuration), the
+    config's other fields from ``cfg_kw``.  Returns the card's launch
+    counts."""
     cfg = tiny_config(family, num_layers=8 if family == "dense" else 4,
-                      dropout_rate=dropout_rate)
+                      dropout_rate=dropout_rate, **cfg_kw)
     kw = dict(global_batch=16, num_micro=2, seq_len=16, rng_mode=rng_mode)
     cpu = VirtualCluster(cfg, 4, 2, device="cpu", **kw)
     init = params_to_numpy(cpu.stem, cpu.layer_params, cpu.head)
@@ -1736,48 +1911,16 @@ def phase_tiny_recovery_twin(family: str, dropout_rate: float = 0.0,
     for dev, cl in (("cpu", cpu), ("cuda", gpu)):
         _pin_planner_clock(cl, logs[dev])
     orig = SnapshotPool.verify_and_repair
+    flips = []
     _build.reset_launch_counts()
     try:
-        for k, op in enumerate(TWIN_SEQUENCE):
-            where = f"tiny {family} recovery twin op {k} {op}"
-            out = {}
-            for dev, cl in (("cpu", cpu), ("cuda", gpu)):
-                def logged(self, *a, _t=tiers[dev], **kk):
-                    res = orig(self, *a, **kk)
-                    _t.append(res[0])
-                    return res
-                SnapshotPool.verify_and_repair = logged
-                out[dev] = _twin_op(cl, op)
-            if op[0] == "train":
-                a, b = out["cuda"], out["cpu"]
-                check(KCC.loss_within(a, b),
-                      f"{where}: loss {a!r} vs cpu {b!r}")
-                atol = KCC.param_atol(gpu)
-                for sg, sc in zip(gpu.stages, cpu.stages):
-                    for c in ("master", "mu", "nu"):
-                        check(torch.allclose(sg.full(c).cpu(), sc.full(c),
-                                             rtol=KCC.PARAM_RTOL, atol=atol),
-                              f"{where}: stage {c} beyond bounds")
-            else:
-                check(out["cuda"] == out["cpu"],
-                      f"{where}: records {out['cuda']} vs {out['cpu']}")
-            check(gpu.layer_assignment == cpu.layer_assignment
-                  and [s.dp_ranks for s in gpu.stages]
-                  == [s.dp_ranks for s in cpu.stages]
-                  and [s.entries for s in gpu.stages]
-                  == [s.entries for s in cpu.stages]
-                  and gpu.per_rank_mbs == cpu.per_rank_mbs
-                  and gpu.grad_weights == cpu.grad_weights,
-                  f"{where}: layouts differ")
-            check(logs["cuda"] == logs["cpu"], f"{where}: remap plans differ")
-            check(tiers["cuda"] == tiers["cpu"], f"{where}: tiers differ")
-            check(op[0] == "corrupt" or snapshot_matches_device(gpu),
-                  f"{where}: ring snapshot != device shards")
-            check(all(t.device.type == "cuda" for st in gpu.stages
-                      for t in st.flat.values()),
-                  f"{where}: stage state left the card")
+        with route_twin(flips):
+            for k, op in enumerate(TWIN_SEQUENCE):
+                _recovery_twin_op(f"tiny {family} recovery twin op {k} {op}",
+                                  op, gpu, cpu, logs, tiers, orig)
     finally:
         SnapshotPool.verify_and_repair = orig
+    log_flips(f"tiny {family} recovery twin", flips)
     check("rebuilt" in tiers["cuda"] and "rederived" in tiers["cuda"],
           f"tiny {family} recovery twin: tiers {tiers['cuda']}")
     counts = dict(_build.LAUNCHES)
@@ -1791,14 +1934,99 @@ def phase_tiny_recovery_twin(family: str, dropout_rate: float = 0.0,
     return counts
 
 
+def _recovery_twin_op(where: str, op: tuple, gpu, cpu, logs: dict,
+                      tiers: dict, verify) -> None:
+    """One op of ``TWIN_SEQUENCE`` on the card, then on the CPU, each
+    side's integrity tiers logged through ``verify`` (the original
+    ``SnapshotPool.verify_and_repair``), then held."""
+    out = {}
+    for dev, cl in (("cuda", gpu), ("cpu", cpu)):
+        def logged(self, *a, _t=tiers[dev], **kk):
+            res = verify(self, *a, **kk)
+            _t.append(res[0])
+            return res
+        SnapshotPool.verify_and_repair = logged
+        out[dev] = _twin_op(cl, op)
+    if op[0] == "train":
+        a, b = out["cuda"], out["cpu"]
+        check(KCC.loss_within(a, b),
+              f"{where}: loss {a!r} vs cpu {b!r}")
+        atol = KCC.param_atol(gpu)
+        for sg, sc in zip(gpu.stages, cpu.stages):
+            for c in ("master", "mu", "nu"):
+                check(torch.allclose(sg.full(c).cpu(), sc.full(c),
+                                     rtol=KCC.PARAM_RTOL, atol=atol),
+                      f"{where}: stage {c} beyond bounds")
+    else:
+        check(out["cuda"] == out["cpu"],
+              f"{where}: records {out['cuda']} vs {out['cpu']}")
+    check(gpu.layer_assignment == cpu.layer_assignment
+          and [s.dp_ranks for s in gpu.stages]
+          == [s.dp_ranks for s in cpu.stages]
+          and [s.entries for s in gpu.stages]
+          == [s.entries for s in cpu.stages]
+          and gpu.per_rank_mbs == cpu.per_rank_mbs
+          and gpu.grad_weights == cpu.grad_weights,
+          f"{where}: layouts differ")
+    check(logs["cuda"] == logs["cpu"], f"{where}: remap plans differ")
+    check(tiers["cuda"] == tiers["cpu"], f"{where}: tiers differ")
+    check(op[0] == "corrupt" or snapshot_matches_device(gpu),
+          f"{where}: ring snapshot != device shards")
+    check(all(t.device.type == "cuda" for st in gpu.stages
+              for t in st.flat.values()),
+          f"{where}: stage state left the card")
+
+
+# snapshot_matches_device's staging: device shards cross to the host in
+# chunks of this many bytes through one pinned buffer (a pageable copy ran
+# at ~2.3 GB/s, PERF.md §5), each chunk compared on COMPARE_THREADS threads
+# (numpy releases the GIL for the comparison)
+PINNED_CHUNK_BYTES = 256 << 20
+COMPARE_THREADS = 8
+_pinned: dict = {}
+_compare_pool = ThreadPoolExecutor(COMPARE_THREADS)
+# seconds spent in snapshot_matches_device so far (PhaseClock reads it)
+snapshot_check_s = [0.0]
+
+
+def _equal_chunk(a: np.ndarray, b: np.ndarray) -> bool:
+    """np.array_equal over ``COMPARE_THREADS`` slices in parallel."""
+    step = -(-a.size // COMPARE_THREADS)
+    return all(_compare_pool.map(
+        lambda i: np.array_equal(a[i:i + step], b[i:i + step]),
+        range(0, a.size, step)))
+
+
 def snapshot_matches_device(cl: VirtualCluster) -> bool:
-    for st, pool in zip(cl.stages, cl.snapshots):
-        for c in ("master", "mu", "nu"):
-            shards = st.table.split(st.flat[c].cpu().numpy())
-            for i in range(pool.n):
-                if not np.array_equal(pool.host[i][c],
-                                      shards[pool.backup_rank(i)]):
-                    return False
+    """Every ring holder's host copy equals the device shard it backs,
+    element for element (``np.array_equal``)."""
+    t0 = time.perf_counter()
+    try:
+        for st, pool in zip(cl.stages, cl.snapshots):
+            for c in ("master", "mu", "nu"):
+                shards = st.table.split(st.flat[c])
+                for i in range(pool.n):
+                    if not _shard_matches(shards[pool.backup_rank(i)],
+                                          pool.host[i][c]):
+                        return False
+        return True
+    finally:
+        snapshot_check_s[0] += time.perf_counter() - t0
+
+
+def _shard_matches(dev: torch.Tensor, host: np.ndarray) -> bool:
+    if host.shape != tuple(dev.shape):
+        return False
+    per = PINNED_CHUNK_BYTES // dev.element_size()
+    if dev.dtype not in _pinned:
+        _pinned[dev.dtype] = torch.empty(per, dtype=dev.dtype,
+                                         pin_memory=True)
+    buf = _pinned[dev.dtype]
+    for a in range(0, dev.numel(), per):
+        b = min(a + per, dev.numel())
+        buf[:b - a].copy_(dev[a:b])
+        if not _equal_chunk(buf[:b - a].numpy(), host[a:b]):
+            return False
     return True
 
 
@@ -1875,7 +2103,7 @@ def profiled_step(cl: VirtualCluster) -> tuple:
     return loss, device_split(trace)
 
 
-def phase_train(cfg, want: dict, steps: int = 3,
+def phase_train(cfg, want: dict, steps: int,
                 profile_step: int | None = None, **cluster_kw) -> tuple:
     """``steps`` steps of ``VirtualCluster.train_step`` at dp=2, pp=2, global
     batch 4 in 2 micro-batches, seq 4096, random weights from seed 1; step
@@ -2170,7 +2398,7 @@ def phase_scenarios() -> tuple:
     w = Mamba2TraceWorkload()
     scn = Scenario.shrink_regrow("shrink_regrow (mamba2-2.7b)",
                                  rank=w.rank(1, 1), fail_step=1,
-                                 rejoin_step=2, horizon=4)
+                                 rejoin_step=2, horizon=3)
     gate, tally = RingGate(), LaunchTally("ssd_scan_sm90", 1)
     t0 = time.perf_counter()
     res = ClusterScenarioRunner(scn, w, checkers=[
@@ -2181,7 +2409,7 @@ def phase_scenarios() -> tuple:
     losses = res.summary["losses"]
     check(all(math.isfinite(x) for x in losses),
           f"mamba2-2.7b shrink_regrow trace: losses {losses}")
-    check([s["dp_width"] for s in res.steps] == [2, 1, 2, 2],
+    check([s["dp_width"] for s in res.steps] == [2, 1, 2],
           f"mamba2-2.7b shrink_regrow trace: widths {res.steps}")
     shares = [sn / st for sn, st in zip(gate.snapshot_s, gate.step_s)]
     for k, (loss, st, sh) in enumerate(zip(losses, gate.step_s, shares)):
@@ -2535,7 +2763,7 @@ def kernel_ssd_final_state(gen) -> dict:
 # ---------------------------------------------------------------------------
 # phase 11: the serving plane
 # ---------------------------------------------------------------------------
-SERVE_TINY = dict(num_layers=2, dropout_rate=0.0)
+SERVE_TINY = dict(dropout_rate=0.0)
 SERVE_SAMPLERS = {"greedy": SamplerConfig(),
                   "top-k": SamplerConfig(method="topk", temperature=0.7,
                                          top_k=8, seed=3)}
@@ -2560,8 +2788,10 @@ SERVE_LOGIT_RTOL = SERVE_BF16["rtol"] * math.sqrt(65)
 # own distance from it plus the bound: the cached decode may add no more
 # than the bound to the error of the no-cache path.  Every block of both
 # models at full depth is held in float32 (SERVE_BLOCK_TIERS)
-SERVE_GATE_LAYERS = {"dense": 32, "ssm": 8}
-SERVE_GATE_FLOAT32 = {"dense": False, "ssm": True}
+# llama4-scout (moe) is served cut to SERVE_MOE_LAYERS layers and held at
+# that depth, against its bf16 forward, to the same bound.
+SERVE_GATE_LAYERS = {"dense": 32, "ssm": 8, "moe": 2}
+SERVE_GATE_FLOAT32 = {"dense": False, "ssm": True, "moe": False}
 # each block, its weights in float32, decoding a step at a time from the
 # bf16 forward's residual stream at its input, against its float32
 # full-sequence forward from the same inputs: no error crosses a block or
@@ -2570,14 +2800,23 @@ SERVE_GATE_FLOAT32 = {"dense": False, "ssm": True}
 # outputs land up to two ulps apart, 1.19% of a row's max on an H100, so
 # bf16 rounding, not the decode, would set a bf16 bound)
 SERVE_BLOCK_TIERS = {"dense": ops.TOLERANCE_TIERS["flash_attention"],
-                     "ssm": ops.TOLERANCE_TIERS["ssd_scan"]}
+                     "ssm": ops.TOLERANCE_TIERS["ssd_scan"],
+                     "moe": ops.TOLERANCE_TIERS["flash_attention"]}
+# llama4-scout served at its published widths: depth 48 cut to 2 layers,
+# and a capacity factor of num_experts / top_k = 16, so that every expert
+# has a place for every token (Llama 4 drops none; the reference's tests
+# route so where batch mates must not matter); the config keeps 1.25
+SERVE_MOE_LAYERS = 2
+SERVE_MOE_CAPACITY = 16.0
+# the tiny serving twins' depth: the hybrid pattern is 4 layers long
+SERVE_TINY_LAYERS = {"dense": 2, "ssm": 2, "moe": 2, "hybrid": 4}
 
 
-def serve_route(cfg) -> str:
-    """The kernel a prefill of ``cfg`` launches once a layer (prompts of at
-    least ``ssm_chunk`` tokens)."""
+def serve_route(cfg, blk: str) -> str:
+    """The kernel a prefill of ``cfg`` launches once in a block of type
+    ``blk`` (prompts of at least ``ssm_chunk`` tokens)."""
     dt = cfg.torch_dtype
-    if cfg.family == "dense":
+    if blk in (ATTN, ATTN_MOE):
         return "flash_attention_sm90" if uses_sm90(dt, cfg.head_dim) \
             else "flash_attention_bf16_mma" if uses_bf16_mma(dt, cfg.head_dim) \
             else "flash_attention_tf32"
@@ -2589,36 +2828,76 @@ def serve_route(cfg) -> str:
 
 def serve_launches(eng: ServingEngine) -> dict:
     """The launches an engine's run must have made, from its prefills and
-    batched decode steps: each prefill one flash (dense) or SSD (ssm)
-    launch a layer, each prefill and batched decode step 2L+1 rmsnorm
-    launches (dense: ln1 and ln2 a layer; ssm: ln1 and out_norm), the
-    final norm included."""
+    batched decode steps: each prefill one flash or SSD launch a block
+    (by its mixer), each prefill and batched decode step one rmsnorm a
+    block (ln1), one more a Mamba2 block (its gated out_norm) and one more
+    a block with an MLP or MoE MLP (ln2), and the final norm: 2L+1 for
+    codeqwen (ln1, ln2), mamba2 (ln1, out_norm) and llama4-scout (ln1,
+    ln2)."""
     cfg = eng.cfg
     prefills = sum(r.prefills for r in eng.requests.values())
     want = {k: 0 for k in _build.LAUNCHES}
-    want["rmsnorm"] = (2 * cfg.num_layers + 1) * (prefills + eng.decode_calls)
-    want[serve_route(cfg)] = cfg.num_layers * prefills
+    types = R.flat_layer_types(cfg)
+    norms = 1 + sum(1 + (t in (MAMBA, MAMBA_MOE))
+                    + (t in (ATTN_MOE, MAMBA_MOE) or cfg.d_ff > 0)
+                    for t in types)
+    want["rmsnorm"] = norms * (prefills + eng.decode_calls)
+    for t in types:
+        want[serve_route(cfg, t)] += prefills
     return want
+
+
+def batch_free_routing(cfg) -> bool:
+    """True when a token's route cannot depend on its batch mates: no MoE
+    block, or every expert has a place for every routed token."""
+    return not cfg.num_experts \
+        or cfg.capacity_factor * cfg.top_k >= cfg.num_experts
+
+
+@contextlib.contextmanager
+def watching_routes(on_route):
+    """While open, ``on_route(logits, routing)`` sees every MoE routing:
+    its float32 router logits [G, n, E] and ``moe.route``'s result."""
+    orig = moe.route
+
+    def watched(cfg, logits, *a, **k):
+        r = orig(cfg, logits, *a, **k)
+        on_route(logits, r)
+        return r
+    moe.route = watched
+    try:
+        yield
+    finally:
+        moe.route = orig
 
 
 def serve_run(cfg, params, sampler, device, *, event=None, policy=None,
               n_requests=3, prompt_len=12, max_new=6, late=(), late_at=0.0,
-              slots=3, timed=False) -> dict:
+              slots=3, timed=False, routes=None) -> dict:
     """One engine run: ``n_requests`` seeded prompts (those in ``late``
     arrive at ``late_at`` simulated seconds), three ticks, then ``event``
     (an ``EventKind``, on replica 0) if given, then drain.  Returns the
     engine, its streams, the logits each sampling step read keyed by (rid,
     position), the event's stats, its launches and, with ``timed``, the
-    wall times of each prefill and decode call and of the event."""
+    wall times of each prefill and decode call and of the event.  A dict
+    ``routes`` receives, by (rid, position), the router logits [MoE
+    layers, E] of the token whose logits were sampled there."""
     eng = ServingEngine(cfg, n_replicas=2, slots_per_replica=slots,
                         max_len=prompt_len + max_new + 1, mode="numeric",
                         params=params, sampler=sampler, policy=policy,
                         slo=SLO(ttft=1e9, per_token=1e9), device=device)
-    logits = {}
+    logits, pending = {}, []
 
     def hook(rids, positions, rows):
-        for rid, pos, row in zip(rids, positions, rows):
+        for j, (rid, pos, row) in enumerate(zip(rids, positions, rows)):
             logits[(rid, pos)] = row.copy()
+            if routes is not None:
+                # a decode step routes the sampled rows in order; a prefill
+                # samples from its prompt's last token
+                routes[(rid, pos)] = torch.stack([
+                    lg[0, j if lg.shape[1] == len(rids) else -1]
+                    for lg in pending]).cpu()
+        pending.clear()
 
     eng.logit_hook = hook
     times = {"prefill": [], "decode": []}
@@ -2647,6 +2926,25 @@ def serve_run(cfg, params, sampler, device, *, event=None, policy=None,
     if device == "cuda":
         _build.reset_launch_counts()
         torch.cuda.synchronize()
+    with contextlib.ExitStack() as stack:
+        if routes is not None:
+            stack.enter_context(watching_routes(
+                lambda lg, r: pending.append(lg.detach())))
+        run = _serve_ticks(eng, event, device)
+    launches = dict(_build.LAUNCHES) if device == "cuda" else None
+    if launches is not None:
+        want = serve_launches(eng)
+        check(launches == want, f"serving {cfg.name} launches {launches} "
+                                f"!= {want}")
+    return dict(engine=eng, logits=logits, launches=launches, times=times,
+                streams=[list(eng.requests[r].generated)
+                         for r in range(n_requests)], **run)
+
+
+def _serve_ticks(eng: ServingEngine, event, device) -> dict:
+    """Three ticks, ``event`` on replica 0 (every migrated slot checked
+    against its source bitwise), then drain: the event's stats, the
+    requests it moved, its wall seconds and the run's."""
     t0 = time.perf_counter()
     for _ in range(3):
         eng.tick()
@@ -2674,16 +2972,8 @@ def serve_run(cfg, params, sampler, device, *, event=None, policy=None,
     eng.drain()
     if device == "cuda":
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES) if device == "cuda" else None
-    if launches is not None:
-        want = serve_launches(eng)
-        check(launches == want, f"serving {cfg.name} launches {launches} "
-                                f"!= {want}")
-    return dict(engine=eng, logits=logits, stats=stats, moved=moved,
-                launches=launches, wall=wall, event_s=event_s, times=times,
-                streams=[list(eng.requests[r].generated)
-                         for r in range(n_requests)])
+    return dict(stats=stats, moved=moved, event_s=event_s,
+                wall=time.perf_counter() - t0)
 
 
 def _first_divergence(a: list, b: list, base: dict) -> str:
@@ -2700,19 +2990,22 @@ def _first_divergence(a: list, b: list, base: dict) -> str:
 
 
 def phase_serve_twins() -> dict:
-    """The tiny dense (float32, head_dim 16: the 3xTF32 flash route) and
-    ssm (float32, chunk 8: the CUDA-core SSD route; prompts of 12 tokens,
-    so every prefill pads a ragged tail) engines on the card beside a CPU
-    twin of the port from the same weights, 2 replicas x 3 slots, 3
-    requests of 6 new tokens, greedy and top-k: undisturbed, a SCALE_IN of
-    replica 0 after two decode ticks (migration), a FAIL_STOP (rebuild) and
-    the drop policy.  Stats, event logs and summaries equal exactly, the
-    streams equal, every logit row within the kernel-consistency bounds
-    (rtol 1e-4, atol 1e-5); on the card the SCALE_IN streams equal the
-    undisturbed run's; launches exact.  Returns launches by path."""
+    """The tiny dense (float32, head_dim 16: the 3xTF32 flash route), ssm
+    (float32, chunk 8: the CUDA-core SSD route; prompts of 12 tokens, so
+    every prefill pads a ragged tail), moe (2 layers, the second MoE) and
+    hybrid (attention, Mamba2 MoE, Mamba2, Mamba2 MoE) engines on the card
+    beside a CPU twin of the port from the same weights, 2 replicas x 3
+    slots, 3 requests of 6 new tokens, greedy and top-k: undisturbed, a
+    SCALE_IN of replica 0 after two decode ticks (migration), a FAIL_STOP
+    (rebuild) and the drop policy.  Stats, event logs and summaries equal
+    exactly, the streams equal, every logit row within the
+    kernel-consistency bounds (rtol 1e-4, atol 1e-5); on the card the
+    SCALE_IN streams equal the undisturbed run's where routing cannot
+    depend on batch mates (``batch_free_routing``); launches exact.
+    Returns launches by path."""
     counts = {}
-    for family in ("dense", "ssm"):
-        cfg = tiny_config(family, **SERVE_TINY)
+    for family, layers in SERVE_TINY_LAYERS.items():
+        cfg = tiny_config(family, **SERVE_TINY, num_layers=layers)
         cpu = R.init_model(torch.Generator().manual_seed(0), cfg)
         card = params_from_numpy(*cpu, "cuda")
         for sname, sampler in SERVE_SAMPLERS.items():
@@ -2722,11 +3015,14 @@ def phase_serve_twins() -> dict:
                     ("scale-in", EventKind.SCALE_IN, None),
                     ("fail-stop", EventKind.FAIL_STOP, None),
                     ("drop", EventKind.SCALE_IN, DropPolicy())):
-                a = serve_run(cfg, card, sampler, "cuda", event=event,
-                              policy=policy)
-                b = serve_run(cfg, cpu, sampler, "cpu", event=event,
-                              policy=policy)
                 name = f"serving twin {family} {sname} {scen}"
+                flips = []
+                with route_twin(flips):
+                    a = serve_run(cfg, card, sampler, "cuda", event=event,
+                                  policy=policy)
+                    b = serve_run(cfg, cpu, sampler, "cpu", event=event,
+                                  policy=policy)
+                log_flips(name, flips)
                 ea, eb = a["engine"], b["engine"]
                 check(a["stats"] == b["stats"]
                       and ea.event_log == eb.event_log
@@ -2761,9 +3057,18 @@ def phase_serve_twins() -> dict:
                   and runs["drop"]["stats"]["dropped"] > 0
                   and runs["fail-stop"]["stats"]["rebuilt"] > 0,
                   f"serving twin {family} {sname}: dispositions")
-            check(runs["scale-in"]["streams"] == runs["undisturbed"]["streams"],
-                  f"serving twin {family} {sname}: SCALE_IN streams differ "
-                  f"from the undisturbed run's")
+            # at the tiny moe configs' capacity factor 1.25 a decode step's
+            # places depend on how many slots are live, so migration may
+            # change what drops (the reference's semantics too)
+            same = runs["scale-in"]["streams"] \
+                == runs["undisturbed"]["streams"]
+            if batch_free_routing(cfg):
+                check(same, f"serving twin {family} {sname}: SCALE_IN "
+                            f"streams differ from the undisturbed run's")
+            else:
+                log(f"serving twin {family} {sname}: capacity-limited "
+                    f"routing; SCALE_IN streams equal the undisturbed "
+                    f"run's: {same}")
             log(f"serving twin {family} {sname}: fail-stop rebuild streams "
                 f"equal the undisturbed run's: "
                 f"{runs['fail-stop']['streams'] == runs['undisturbed']['streams']}")
@@ -2780,23 +3085,36 @@ def float32_params(tree):
     return tree.float()
 
 
-def logits_vs_forward(params, cfg, run: dict,
-                      float32_ref: bool = False) -> dict:
+def logits_vs_forward(params, cfg, run: dict, float32_ref: bool = False,
+                      routes: dict = None) -> dict:
     """Every logits row the run's engine sampled from, against a
     full-sequence forward of the same tokens, per row within
     ``SERVE_LOGIT_RTOL`` of the row's max |logit| (held).  ``float32_ref``:
     the rows are held against the float32 forward of the same weights instead,
     each allowed, on top of the bound, the bf16 forward's own max |error|
-    in that row.  Returns the worst error (beyond that allowance) as a
-    share of the row's max |logit|."""
+    in that row.  ``routes`` (an MoE model: the engine's router logits by
+    (rid, position), ``serve_run``): each position's experts, layer by
+    layer, against the forward's own.  Where they differ the route flipped
+    on a near-tie of the router's float32 input (the reference's
+    semantics): that position's router logits are held within the same
+    bound of the forward's, and its output logits, another expert's
+    function rather than a rounding of the same one, are printed, not
+    held.  Returns the worst held error (beyond any allowance) as a share
+    of the row's max |logit|, and the flips."""
     rtol, atol = SERVE_LOGIT_RTOL, SERVE_BF16["atol"]
     worst, agree, rows, own = 0.0, 0, 0, 0.0
+    flips = []
     ref_args = (float32_params(params),
                 dataclasses.replace(cfg, dtype="float32")) \
         if float32_ref else None
     for rid, req in sorted(run["engine"].requests.items()):
         seq = [int(t) for t in req.prompt] + req.generated[:-1]
-        full = full_forward_logits(params, cfg, seq).float().cpu().numpy()
+        fwd_routes = []
+        with contextlib.ExitStack() as stack:
+            if routes is not None:
+                stack.enter_context(watching_routes(
+                    lambda lg, r: fwd_routes.append(lg[0].float().cpu())))
+            full = full_forward_logits(params, cfg, seq).float().cpu().numpy()
         ref32 = full_forward_logits(*ref_args, seq).cpu().numpy() \
             if float32_ref else None
         for pos in range(len(req.prompt), len(seq) + 1):
@@ -2807,25 +3125,75 @@ def logits_vs_forward(params, cfg, run: dict,
                 slack = float(np.abs(full[pos - 1] - want).max())
             err = float(np.abs(got - want).max())
             scale = float(np.abs(want).max())
+            where = f"{cfg.name} serving: request {rid} position {pos}"
+            route = None
+            if routes is not None:
+                route = route_agreement(
+                    routes[(rid, pos)],
+                    torch.stack([f[pos - 1] for f in fwd_routes]), cfg.top_k)
+            if route is not None and route["layers"]:
+                flips.append(dict(rid=rid, pos=pos, logits_rel_err=err / scale,
+                                  **route))
+                log(f"{where}: route flipped at layers {route['layers']} "
+                    f"(engine experts {route['engine']}, forward "
+                    f"{route['forward']}; the forward router's margin at "
+                    f"the top-k boundary {route['margin']}); at the first, "
+                    f"router logits within {route['router_rel_diff']:.4e} "
+                    f"of max |router logit|; output logits "
+                    f"{err / scale:.4e} of max |logit| (printed, not held)")
+                check(route["router_rel_diff"] <= rtol,
+                      f"{where}: router logits {route['router_rel_diff']:.4e}"
+                      f" of max |router logit| off the forward's at layer "
+                      f"{route['layers'][0]}, beyond {rtol:.3e}: not a "
+                      f"near-tie")
+                continue
             worst = max(worst, (err - slack) / scale)
             own = max(own, slack / scale)
             agree += int(np.argmax(got) == np.argmax(want))
             rows += 1
             check(err <= slack + rtol * scale + atol,
-                  f"{cfg.name} serving: request {rid} position {pos}: "
-                  f"logits max_abs_err {err:.4e} beyond {slack:.4e} + "
-                  f"{rtol:.3e} x max |logit| {scale:.3f}")
+                  f"{where}: logits max_abs_err {err:.4e} beyond {slack:.4e} "
+                  f"+ {rtol:.3e} x max |logit| {scale:.3f}"
+                  + ("" if route is None else
+                     f"; engine and forward chose the same experts, the "
+                     f"forward router's margin at the top-k boundary "
+                     f"{route['margin']}"))
         del full, ref32
     what = ("the float32 forward, beyond the bf16 forward's own error "
             f"(at most {own:.4e} of max |logit|)" if float32_ref
             else "the full-sequence forward")
     log(f"{cfg.name} serving ({cfg.num_layers} layers): engine logits vs "
         f"{what} over {rows} rows: max err / max |logit| {worst:.4e} "
-        f"(bound {rtol:.4e}, held), argmax agreement {agree}/{rows}")
+        f"(bound {rtol:.4e}, held), argmax agreement {agree}/{rows}"
+        + ("" if routes is None else
+           f"; routes equal the forward's at {rows} positions, flipped on a "
+           f"near-tie at {len(flips)}"))
     return dict(max_rel_err=worst, bound=rtol, layers=cfg.num_layers,
                 float32_ref=float32_ref,
                 forward_max_rel_err=own if float32_ref else None,
-                argmax_agreement=agree / rows, rows=rows)
+                argmax_agreement=agree / rows, rows=rows,
+                **({} if routes is None else {"route_flips": flips}))
+
+
+def route_agreement(eng: torch.Tensor, fwd: torch.Tensor, k: int) -> dict:
+    """Router logits [MoE layers, E] of one token in the engine and in the
+    forward: the layers whose top-k experts differ, both sides' experts
+    there, the forward's margin between its k-th and (k+1)-th logit at
+    every layer, and, at the first layer whose experts differ (every later
+    layer's input follows from the other expert's output), the largest
+    difference of the logits as a share of the forward's largest
+    |logit|."""
+    e_eng = eng.topk(k).indices.sort(dim=-1).values
+    e_fwd = fwd.topk(k).indices.sort(dim=-1).values
+    layers = [i for i in range(len(eng)) if not torch.equal(e_eng[i],
+                                                            e_fwd[i])]
+    top = fwd.topk(k + 1).values
+    first = layers[0] if layers else 0
+    return dict(layers=layers, engine=[e_eng[i].tolist() for i in layers],
+                forward=[e_fwd[i].tolist() for i in layers],
+                margin=[round(float(m), 6) for m in top[:, k - 1] - top[:, k]],
+                router_rel_diff=float((eng[first] - fwd[first]).abs().max()
+                                      / fwd[first].abs().max()))
 
 
 def blocks_vs_forward(params, cfg, run: dict) -> float:
@@ -2889,9 +3257,9 @@ def full_forward_logits(params, cfg, tokens: list) -> torch.Tensor:
 
 
 def phase_serve_full(cfg) -> tuple:
-    """``cfg`` at its published widths and depth, bf16, random weights from
-    seed 0 on the card, 2 replicas x 4 slots, 8 requests of 1024-token
-    prompts and 64 new tokens: requests 0-3 arrive at 0, 4-7 at 4.0
+    """``cfg`` at its published widths and depth (llama4-scout cut, see
+    ``SERVE_MOE_LAYERS``), bf16, random weights from seed 0 on the card, 2
+    replicas x 4 slots, 8 requests of 1024-token prompts and 64 new tokens: requests 0-3 arrive at 0, 4-7 at 4.0
     simulated seconds (after the event).  Greedy undisturbed (its logits
     against a full-sequence forward: see ``SERVE_GATE_LAYERS``), greedy with
     a SCALE_IN of replica 0 after two decode ticks (every in-flight request
@@ -2913,11 +3281,14 @@ def phase_serve_full(cfg) -> tuple:
     kw = dict(n_requests=8, prompt_len=1024, max_new=64, late=range(4, 8),
               late_at=4.0, slots=4, timed=True)
     runs, counts = {}, {}
+    # an MoE model's base run keeps each sampled token's router logits
+    routes = {} if cfg.num_experts else None
     for sname, sampler, scen, event in (
             ("greedy", SamplerConfig(), "undisturbed", None),
             ("greedy", SamplerConfig(), "scale-in", EventKind.SCALE_IN),
             ("top-k", SERVE_FULL_TOPK, "scale-in", EventKind.SCALE_IN)):
-        r = serve_run(cfg, params, sampler, "cuda", event=event, **kw)
+        r = serve_run(cfg, params, sampler, "cuda", event=event,
+                      routes=routes if event is None else None, **kw)
         runs[(sname, scen)] = r
         counts[f"{name} serving {sname} {scen}"] = r["launches"]
         toks = sum(len(s) for s in r["streams"])
@@ -2949,7 +3320,7 @@ def phase_serve_full(cfg) -> tuple:
     depth = SERVE_GATE_LAYERS[cfg.family]
     float32_ref = SERVE_GATE_FLOAT32[cfg.family]
     if depth == cfg.num_layers:
-        gate = logits_vs_forward(params, cfg, base, float32_ref)
+        gate = logits_vs_forward(params, cfg, base, float32_ref, routes)
     else:
         cut = dataclasses.replace(cfg, num_layers=depth)
         cut_params = (params[0], params[1][:depth], params[2])
@@ -2997,13 +3368,20 @@ def _param_leaves(params) -> list:
 
 def phase_serve() -> tuple:
     """Phase 11: the serving twins, codeqwen1.5-7b and mamba2-2.7b at full
-    width and depth, then ``launch/serve.py --smoke`` and
+    width and depth, llama4-scout-17b-a16e at full width (2 layers,
+    capacity factor 16), then ``launch/serve.py --smoke`` and
     ``examples/torch_serve.py`` on the card.  Returns (launches by path,
     records, wall seconds)."""
     t0 = time.perf_counter()
     counts = phase_serve_twins()
     recs = {}
-    for cfg in (codeqwen1p5_7b.config(), mamba2_2p7b.config()):
+    llama4 = dataclasses.replace(llama4_scout_17b_a16e.config(),
+                                 num_layers=SERVE_MOE_LAYERS,
+                                 capacity_factor=SERVE_MOE_CAPACITY)
+    check(SERVE_MOE_CAPACITY == llama4.num_experts / llama4.top_k,
+          "llama4-scout's serving capacity factor must give every expert a "
+          "place for every token")
+    for cfg in (codeqwen1p5_7b.config(), mamba2_2p7b.config(), llama4):
         c, recs[cfg.name] = phase_serve_full(cfg)
         counts.update(c)
     for label, fn in (
@@ -3027,9 +3405,29 @@ def phase_serve() -> tuple:
     return counts, recs, wall
 
 
+class PhaseClock:
+    """Wall seconds from one ``mark`` to the next and, of them, the ring
+    snapshot checks' (``snapshot_matches_device``), logged and kept by
+    phase name."""
+
+    def __init__(self):
+        self.rows: dict = {}
+        self._t, self._c = time.perf_counter(), snapshot_check_s[0]
+
+    def mark(self, name: str) -> None:
+        t, c = time.perf_counter(), snapshot_check_s[0]
+        self.rows[name] = dict(wall_s=t - self._t,
+                               snapshot_checks_s=c - self._c)
+        log(f"[clock] {name}: {t - self._t:.1f} s, of which ring snapshot "
+            f"checks {c - self._c:.1f} s")
+        self._t, self._c = t, c
+
+
 def main() -> None:
+    clock = PhaseClock()
     card = phase_device()
     pipes = phase_build()
+    clock.mark("phases 1-2 (device, build, SASS)")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     recs = {"rmsnorm": kernel_rmsnorm(gen), **kernel_flash(gen)}
@@ -3050,6 +3448,7 @@ def main() -> None:
             f"{tag}sass_alu_pipe_per_element": alu,
             f"{tag}sass_multiply_add_pipe_per_element": mad})
     torch.cuda.empty_cache()
+    clock.mark("phase 3 (kernels)")
     tiny = phase_tiny_twin("dense")
     check(tiny["flash_attention_tf32"] > 0 and tiny["flash_attention"] == 0
           and tiny["flash_attention_sm90"] == 0,
@@ -3087,12 +3486,37 @@ def main() -> None:
           and tiny_ssm_bf16["ssd_scan_sm90_f32"] == 0,
           f"tiny ssm twin (bf16, headdim 64, state 64, chunk 64) must take "
           f"the tensor-core SSD route only: {tiny_ssm_bf16}")
+    # the MoE family: moe at the default capacity factor 1.25 (tokens
+    # drop), moe with row dispatch, hybrid (attention, Mamba2 and MoE
+    # blocks: the 3xTF32 flash and CUDA-core SSD routes)
+    tiny_moe = {}
+    for family, twin in MOE_TWINS:
+        counts = phase_tiny_twin(family, twin)
+        ssd = family == "hybrid"
+        check(counts["flash_attention_tf32"] > 0
+              and (counts["ssd_scan"] > 0) == ssd
+              and all(counts[k] == 0 for k in (
+                  "flash_attention", "flash_attention_sm90",
+                  "flash_attention_bf16_mma", "ssd_scan_sm90",
+                  "ssd_scan_sm90_f32")),
+              f"tiny {family} twin ({twin}) must take the 3xTF32 flash "
+              f"route{' and the CUDA-core SSD route' if ssd else ''} only: "
+              f"{counts}")
+        tiny_moe[(family, twin)] = counts
     twin_dense = phase_tiny_recovery_twin("dense")
     check(twin_dense["flash_attention_tf32"] > 0
           and twin_dense["flash_attention"] == 0
           and twin_dense["flash_attention_sm90"] == 0,
           f"tiny dense recovery twin (float32) must take the 3xTF32 flash "
           f"route only: {twin_dense}")
+    # MoE under fail-stop, as the reference tests it
+    # (tests/test_cluster_elastic.py: capacity factor 16, so that routing
+    # does not depend on which samples share an item)
+    twin_moe = phase_tiny_recovery_twin("moe", capacity_factor=16.0)
+    check(twin_moe["flash_attention_tf32"] > 0 and twin_moe["ssd_scan"] == 0
+          and twin_moe["flash_attention_sm90"] == 0,
+          f"tiny moe recovery twin (float32) must take the 3xTF32 flash "
+          f"route only: {twin_moe}")
     twin_ssm = phase_tiny_recovery_twin("ssm")
     check(twin_ssm["ssd_scan"] > 0 and twin_ssm["ssd_scan_sm90"] == 0
           and twin_ssm["ssd_scan_sm90_f32"] == 0,
@@ -3118,6 +3542,7 @@ def main() -> None:
     for name, errs in kernel_path_shapes(gen).items():
         recs[name].update(errs)
     torch.cuda.empty_cache()
+    clock.mark("phase 4 (tiny twins, path shapes)")
     # the dense train step without dropout, one step (cut from 2 for the
     # serving phase's time)
     paths = {"codeqwen1.5-7b": phase_train(
@@ -3125,6 +3550,7 @@ def main() -> None:
         steps=1)[0]}
     gc.collect()                 # free the dense cluster's host and card state
     torch.cuda.empty_cache()
+    clock.mark("phase 5 (codeqwen step)")
     # the same model at dropout 0.1, samples' streams addressed by their
     # global ids, 2 steps
     paths["codeqwen1.5-7b dropout 0.1"] = phase_train(
@@ -3133,28 +3559,35 @@ def main() -> None:
         rng_mode="reshard")[0]
     gc.collect()
     torch.cuda.empty_cache()
+    clock.mark("phase 5 (codeqwen at dropout 0.1)")
     paths["mamba2-2.7b"], ssm = phase_train(
         dataclasses.replace(mamba2_2p7b.config(), num_layers=4), SSM_LAUNCHES,
-        hw=H100_HW)
+        steps=2, hw=H100_HW)
+    clock.mark("phase 6 (mamba2 steps)")
     paths["mamba2-2.7b recovery"], recoveries = phase_recovery(ssm)
     del ssm
     gc.collect()           # free the bf16 mamba2 cluster's host and card state
     torch.cuda.empty_cache()
+    clock.mark("phase 7 (recovery)")
     # the float32 mamba2 step on the float32 tensor-core SSD route, depth
-    # cut to 2 layers, 2 steps
+    # cut to 2 layers, 1 step
     paths["mamba2-2.7b float32"] = phase_train(
         dataclasses.replace(mamba2_2p7b.config(), num_layers=2,
-                            dtype="float32"), SSM_F32_LAUNCHES, steps=2)[0]
+                            dtype="float32"), SSM_F32_LAUNCHES, steps=1)[0]
     gc.collect()
     torch.cuda.empty_cache()
+    clock.mark("phase 8 (mamba2 float32)")
     scenario_paths, scenarios, scenario_s = phase_scenarios()
     paths.update(scenario_paths)
+    clock.mark("phase 9 (scenarios)")
     fuzz_paths, fuzz_runs, fuzz_s = phase_fuzz()
     paths.update(fuzz_paths)
     gc.collect()
     torch.cuda.empty_cache()
+    clock.mark("phase 10 (fuzzer)")
     serve_paths, serving, serve_s = phase_serve()
     paths.update(serve_paths)
+    clock.mark("phase 11 (serving)")
     kernels = [dict(name=name, route="cuda", source=SOURCES[name][0],
                     replaces=SOURCES[name][1],
                     launches=sum(p[name] for p in paths.values()),
@@ -3182,7 +3615,13 @@ def main() -> None:
                f"dropout {DROPOUT_RATE},{k.split(',')[1]})", counts)
               for k, counts in drop_twins.items()),
             ("threefry_dropout", f"tiny-dense recovery twin (float32, "
-             f"dropout {DROPOUT_RATE})", twin_drop)):
+             f"dropout {DROPOUT_RATE})", twin_drop),
+            *(("flash_attention_tf32", f"tiny-{f} twin ({t})", counts)
+              for (f, t), counts in tiny_moe.items()),
+            ("ssd_scan", "tiny-hybrid twin (float32)",
+             tiny_moe[("hybrid", "float32")]),
+            ("flash_attention_tf32", "tiny-moe recovery twin (float32)",
+             twin_moe)):
         by_name[name]["launches_by_path"][path] = counts[name]
     log(card)
     log(json.dumps({"kernels": kernels}))
@@ -3190,6 +3629,7 @@ def main() -> None:
     log(json.dumps({"scenarios": scenarios, "phase_s": scenario_s}))
     log(json.dumps({"fuzz": fuzz_runs, "phase_s": fuzz_s}))
     log(json.dumps({"serving": serving, "phase_s": serve_s}))
+    log(json.dumps({"phases": clock.rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -299,7 +299,9 @@ class VirtualCluster:
                          deterministic=deterministic)
             loss = self._loss_fn(self.stem, self.layer_params, self.head,
                                  toks, toks, ctx)
-            grads = torch.autograd.grad(loss, self._leaves)
+            # an MoE layer under relu2 never reads its experts' wu: zeros
+            grads = torch.autograd.grad(loss, self._leaves, allow_unused=True,
+                                        materialize_grads=True)
             flatten_leaves(grads, out=flat)
             del grads
             w = self.grad_weights[r] / self.num_micro

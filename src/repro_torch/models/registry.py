@@ -11,7 +11,7 @@ from typing import Any, Callable, Dict, List
 
 import torch
 
-from .config import ATTN, MAMBA, ModelConfig
+from .config import ModelConfig
 from . import layers as L
 from . import transformer as T
 
@@ -92,11 +92,10 @@ class ServingHooks:
 
 
 def serving_hooks(cfg: ModelConfig, device=None) -> ServingHooks:
-    """The hooks of a decoder-only config of attention and Mamba2 blocks,
-    with caches on ``device``.  An enc-dec config (the audio family), MoE
-    blocks (the moe and hybrid families), MLA and modality prefix
-    embeddings are not ported and raise, naming the slice that ports
-    them."""
+    """The hooks of a decoder-only config of attention and Mamba2 blocks
+    with dense or MoE MLPs, with caches on ``device``.  An enc-dec config
+    (the audio family), MLA and modality prefix embeddings are not ported
+    and raise, naming the slice that ports them."""
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: enc-dec serving waits for the enc-dec slice of "
@@ -105,14 +104,10 @@ def serving_hooks(cfg: ModelConfig, device=None) -> ServingHooks:
         raise NotImplementedError(
             f"{cfg.name}: modality prefix embeddings wait for the VLM "
             f"front-end slice of the port")
-    blocks = set(flat_layer_types(cfg))
-    if not blocks <= {ATTN, MAMBA} or cfg.num_experts or cfg.use_mla:
+    if cfg.use_mla:
         raise NotImplementedError(
-            f"{cfg.name}: serving {sorted(blocks)} blocks (experts "
-            f"{cfg.num_experts}, MLA {cfg.use_mla}) waits for the MoE and "
-            f"MLA slices of the port (MoE and hybrid MoE blocks, "
-            f"deepseek-v3's latent attention); dense attention and Mamba2 "
-            f"blocks serve")
+            f"{cfg.name}: serving MLA (deepseek-v3's latent attention) waits "
+            f"for the MLA slice of the port")
 
     def init_caches(batch, max_len):
         return T.init_caches(cfg, batch, max_len, device)
@@ -140,8 +135,11 @@ def serving_hooks(cfg: ModelConfig, device=None) -> ServingHooks:
 def tiny_config(family: str = "dense", **kw) -> ModelConfig:
     """Reduced config of a family for CPU tests, field for field the
     reference's.  Every family's config is data for the cost model and the
-    scenario engine; training builds only the blocks the port runs (dense
-    attention and Mamba2): ``transformer.init_block`` raises on the others."""
+    scenario engine; the dense, moe, ssm and hybrid families build, train
+    and serve (attention and Mamba2 blocks, dense or MoE MLPs).  The audio
+    family's encoder and the vlm family's prefix embeddings wait for their
+    slices (``serving_hooks`` raises), MLA (``use_mla``) too
+    (``transformer.init_block`` raises)."""
     base = dict(name=f"tiny-{family}", family=family, num_layers=4, d_model=64,
                 num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=256,
                 rope_theta=10000.0, dtype="float32")

@@ -1,6 +1,6 @@
-"""Decoder blocks (ATTN and MAMBA branches), the whole-model forward with
-caches, the serving prefill/decode steps and the loss, mirroring
-``repro.models.transformer``.
+"""Decoder blocks (attention or Mamba2 mixer, dense or MoE MLP), the
+whole-model forward with caches, the serving prefill/decode steps and the
+loss, mirroring ``repro.models.transformer``.
 
 The whole model is the port's per-layer layout ``(stem, layers, head)``
 (``registry.init_model``; ``weights.params_from_stacked`` turns the
@@ -9,7 +9,7 @@ reference's stacked tree into it), and its caches a per-layer list
 the reference stacks layers of a segment on a leading axis.  Caches are
 updated in place.
 
-MoE blocks and MLA wait for later slices of the port.
+MLA (deepseek-v3's latent attention) waits for a later slice of the port.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import torch
 from .config import ATTN, ATTN_MOE, MAMBA, MAMBA_MOE, ModelConfig
 from . import layers as L
 from . import mamba as M
+from . import moe as X
 
 
 def _is_attn(blk: str) -> bool:
@@ -36,12 +37,11 @@ def _has_mlp(cfg: ModelConfig, blk: str) -> bool:
 
 
 def _check_ported(cfg: ModelConfig, blk: str) -> None:
-    if blk not in (ATTN, MAMBA) or cfg.num_experts \
-            or (blk == ATTN and cfg.use_mla):
+    if blk not in (ATTN, ATTN_MOE, MAMBA, MAMBA_MOE) \
+            or (_is_attn(blk) and cfg.use_mla):
         raise NotImplementedError(
-            f"block {blk!r} (use_mla={cfg.use_mla}, "
-            f"num_experts={cfg.num_experts}) is not ported yet: the port "
-            f"runs dense attention and Mamba2 blocks")
+            f"block {blk!r} (use_mla={cfg.use_mla}) is not ported yet: the "
+            f"port runs attention and Mamba2 blocks with dense or MoE MLPs")
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig,
@@ -55,7 +55,10 @@ def init_block(gen: torch.Generator, cfg: ModelConfig,
         p["mamba"] = M.init_mamba(gen, cfg)
     if _has_mlp(cfg, blk):
         p["ln2"] = L.init_rmsnorm(cfg.d_model, dev)
-        p["mlp"] = L.init_mlp(gen, cfg)
+        if _is_moe(blk):
+            p["moe"] = X.init_moe(gen, cfg)
+        else:
+            p["mlp"] = L.init_mlp(gen, cfg)
     return p
 
 
@@ -64,7 +67,7 @@ def apply_block(params, cfg: ModelConfig, blk: str, x, positions,
                 cache_index=None, rows=None):
     """Returns (x, aux_loss).  ``cache`` (the block's KV cache or SSM
     state) is updated in place at ``cache_index``, in the batch rows
-    ``rows`` (None: all)."""
+    ``rows`` (None: all); an MoE MLP routes only those rows."""
     _check_ported(cfg, blk)
     ctx = rng_ctx.layer(layer_id)
     h = L.rmsnorm(params["ln1"], x, cfg.norm_eps)
@@ -79,7 +82,10 @@ def apply_block(params, cfg: ModelConfig, blk: str, x, positions,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if _has_mlp(cfg, blk):
         h = L.rmsnorm(params["ln2"], x, cfg.norm_eps)
-        m = L.apply_mlp(params["mlp"], cfg, h)
+        if _is_moe(blk):
+            m, aux = X.apply_moe(params["moe"], cfg, h, rows=rows)
+        else:
+            m = L.apply_mlp(params["mlp"], cfg, h)
         x = x + L.dropout(m, cfg.dropout_rate, ctx, op_id=1)
     return x, aux
 

@@ -157,13 +157,24 @@ def test_params_carry_bf16_leaves_exactly():
 
 
 def test_unported_paths_raise():
-    """Building an MoE block still raises (its config is data, as the
-    reference's); dropout at a positive rate runs (the reference's
+    """MLA still raises; an MoE block builds (since the MoE slice, with the
+    reference's leaves: router, experts and no dense MLP) and returns its
+    load-balancing loss; dropout at a positive rate runs (the reference's
     masks, ``test_torch_threefry.py``): kept elements are scaled by
     fl32(1 / fl32(0.9)), the rest are zero."""
-    moe = R.tiny_config("moe")
-    with pytest.raises(NotImplementedError):
-        R.init_layer(torch.Generator().manual_seed(0), moe, 1)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        R.init_layer(torch.Generator().manual_seed(0),
+                     R.tiny_config("dense", use_mla=True), 0)
+    moe, moe_j = R.tiny_config("moe"), JR.tiny_config("moe")
+    p = R.init_layer(torch.Generator().manual_seed(0), moe, 1)
+    want = JR.init_layer(jax.random.key(0), moe_j, 1)
+    assert sorted(p) == sorted(want) and "mlp" not in p
+    assert sorted(p["moe"]) == sorted(want["moe"])
+    h = torch.randn(2, 8, moe.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    y, aux = R.apply_layer(p, moe, 1, h, torch.arange(8)[None].expand(2, 8),
+                           RngCtx())
+    assert y.shape == h.shape and float(aux) > 0
     cfg = R.tiny_config("dense", dropout_rate=0.1)
     x = torch.ones(2, 8, cfg.d_model)
     from repro_torch.kernels.threefry import fold_in, key_from_seed

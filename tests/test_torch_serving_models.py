@@ -218,6 +218,14 @@ def test_bf16_prefill_and_decode_logits():
         pos = pos + 1
 
 
+# the moe and hybrid families serve since the MoE slice: their cases build
+# the hooks and run a tiny engine beside the reference's
+MOE_SERVE = {"moe": dict(num_layers=2, d_model=32, num_heads=2,
+                         num_kv_heads=1, d_ff=64, moe_d_ff=32,
+                         vocab_size=128),
+             "hybrid": dict(vocab_size=128)}
+
+
 @pytest.mark.parametrize("family,kw,match", [
     ("moe", {}, "MoE"),
     ("hybrid", {}, "MoE"),
@@ -226,8 +234,44 @@ def test_bf16_prefill_and_decode_logits():
     ("dense", {"use_mla": True}, "MLA"),
 ])
 def test_serving_hooks_raise_for_unported_families(family, kw, match):
+    if family in MOE_SERVE:
+        _moe_engine_twin(family)
+        return
     with pytest.raises(NotImplementedError, match=match):
         R.serving_hooks(R.tiny_config(family, **kw), "cpu")
+
+
+def _moe_engine_twin(family):
+    """Greedy streams and summaries of a tiny MoE engine (1 replica x 4
+    slots, 3 requests) equal the reference's from the same weights; at the
+    default capacity factor a decode step of 3 live slots has 2 places an
+    expert (E 4, top-2; 3 at all 4 slots), so routing only the live rows
+    matters."""
+    from repro import serving as JS
+    from repro_torch import serving as S
+    kw = dict(MOE_SERVE[family], dropout_rate=0.0)
+    cfg_j, cfg_t = JR.tiny_config(family, **kw), R.tiny_config(family, **kw)
+    R.serving_hooks(cfg_t, "cpu")
+    pj = JT.init_params(jax.random.key(0), cfg_j)
+    pt = params_from_stacked(cfg_t, pj, "cpu")
+    engines = []
+    for mod, params, cfg, extra in ((JS, pj, cfg_j, {}),
+                                    (S, pt, cfg_t, {"device": "cpu"})):
+        eng = mod.ServingEngine(cfg, n_replicas=1, slots_per_replica=4,
+                                max_len=16, mode="numeric", seed=0,
+                                params=params, **extra)
+        rng = np.random.default_rng(0)
+        for rid in range(3):
+            eng.submit(mod.Request(rid=rid, arrival=0.0, max_new_tokens=4,
+                                   prompt=rng.integers(0, 128, size=6)
+                                   .astype(np.int32)))
+        eng.drain()
+        engines.append(eng)
+    ref, eng = engines
+    assert [eng.requests[r].generated for r in range(3)] == \
+        [ref.requests[r].generated for r in range(3)]
+    assert all(len(eng.requests[r].generated) == 4 for r in range(3))
+    assert eng.summary() == ref.summary()
 
 
 def test_chunked_attention_still_raises():
@@ -240,14 +284,21 @@ def test_chunked_attention_still_raises():
 
 
 def test_configs_cover_the_ported_archs():
-    assert configs.ARCH_IDS == ["mamba2_2p7b", "codeqwen1p5_7b"]
+    assert configs.ARCH_IDS == ["mamba2_2p7b", "codeqwen1p5_7b",
+                                "llama4_scout_17b_a16e",
+                                "jamba_1p5_large_398b"]
+    assert configs.get_config("llama4-scout-17b-a16e").num_experts == 16
+    assert configs.get_smoke_config("jamba-1.5-large-398b").family == \
+        "hybrid"
     assert configs.get_config("codeqwen1.5-7b").num_layers == 32
     assert configs.get_smoke_config("mamba2-2.7b").family == "ssm"
     with pytest.raises(KeyError, match="llama3_405b"):
         configs.get_config("llama3_405b")
 
 
-@pytest.mark.parametrize("arch", ["codeqwen1p5_7b", "mamba2_2p7b"])
+@pytest.mark.parametrize("arch", ["codeqwen1p5_7b", "mamba2_2p7b",
+                                  "llama4_scout_17b_a16e",
+                                  "jamba_1p5_large_398b"])
 def test_full_size_cache_shapes_on_meta(arch):
     """The full configs' caches as shapes only (the meta device), equal to
     the reference's ``cache_shapes`` leaf for leaf."""
@@ -256,11 +307,31 @@ def test_full_size_cache_shapes_on_meta(arch):
     caches = T.init_caches(cfg_t, 2, 1024, device="meta")
     shapes = JT.cache_shapes(cfg_j, 2, 1024)
     assert len(caches) == cfg_t.num_layers
+    where = [(si, i) for si, (pat, rep) in enumerate(cfg_j.block_pattern())
+             for _ in range(rep) for i in range(len(pat))]
     for layer, c in enumerate(caches):
+        si, i = where[layer]
         want = jax.tree.map(lambda a: (a.shape[2:], a.dtype.name),
-                            shapes[0][0])
+                            shapes[si][i])
         for k, v in c.items():
             assert v.device.type == "meta"
             assert (tuple(v.shape[1:]), str(v.dtype)[6:]) == \
                 (tuple(want[k][0]), want[k][1])
             assert v.shape[0] == 2
+
+
+@pytest.mark.parametrize("arch", ["llama4_scout_17b_a16e",
+                                  "jamba_1p5_large_398b"])
+def test_new_configs_equal_the_reference(arch):
+    """The MoE slice's two configs, published and smoke, field for field
+    the reference's, by id and by alias."""
+    import dataclasses
+    from repro import configs as jconfigs
+    alias = {"llama4_scout_17b_a16e": "llama4-scout-17b-a16e",
+             "jamba_1p5_large_398b": "jamba-1.5-large-398b"}[arch]
+    for name in (arch, alias):
+        for get, jget in ((configs.get_config, jconfigs.get_config),
+                          (configs.get_smoke_config,
+                           jconfigs.get_smoke_config)):
+            assert dataclasses.asdict(get(name)) == \
+                dataclasses.asdict(jget(name))
