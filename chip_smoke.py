@@ -31,8 +31,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    bidirectional, a peaked softmax and strided projection views, with the
    CUDA-core kernel on the MHA case's inputs; bf16 on the wgmma route MHA
    and GQA, plus head_dim 64, ragged S 4000, bidirectional, a peaked
-   softmax and strided projection views, and llama4-scout's attention
-   ([1, 1024, 40, 128], 8 kv heads, causal) timed beside SDPA; fused
+   softmax and strided projection views, and the published models'
+   prefill attention over 8 kv heads at head_dim 128, causal
+   (``FLASH_MODEL_SHAPES``: llama4-scout [1, 1024, 40, 128];
+   nemotron-4-15b, deepseek-67b and llama3-405b [1, 4096, 48 / 64 / 128,
+   128] and phase 11's [1, 1024, 48 / 64 / 128, 128]), each timed beside
+   SDPA; fused
    AdamW bitwise against the numpy
    oracle over 3 steps, at n % 4 != 0 and on views off a 16-byte boundary;
    the SSD scan at [1, 4096, 80, 64] with n 128, chunk 256, against the
@@ -96,11 +100,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    Mamba2 and Mamba2-MoE blocks on the 3xTF32 flash and CUDA-core SSD
    routes) and the moe recovery sequence at capacity factor 16, the CPU
    twin replaying the card's experts where a near-tie of the router's
-   float32 input fell the other way (``route_twin``); and the
+   float32 input fell the other way (``route_twin``); the MLA twin
+   (deepseek-v3's smoke config: MLA with q_lora, MoE after a dense layer,
+   capacity factor 1.25) with the same replay, launches exact
+   (``MLA_TWIN_LAUNCHES``: no flash launch, 4 rmsnorms a block); and the
    main-path kernels at the shapes recovery gives them (batch-2 items:
    rmsnorm on 8192 rows of 2560 and 5120, the SSD scan at
-   [2, 4096, 80, 64]) and rmsnorm in float32 at phase 8's [4096, 2560]
-   and [4096, 5120], against their plain versions;
+   [2, 4096, 80, 64]), rmsnorm in float32 at phase 8's [4096, 2560]
+   and [4096, 5120], and rmsnorm in bf16 at phase 11's widths
+   (``SERVE_NORM_WIDTHS``: 6144, 7168, 8192, 16384, MLA's 1536 and 512,
+   the last a slice of a 576-wide row) on 1024 and 4 rows, against their
+   plain versions;
 5. the dense main path: ``VirtualCluster.train_step`` on codeqwen1.5-7b at
    its published widths and dtype, depth cut to 2 layers, dp=2, pp=2, seq
    4096, one step without dropout (cut from 2 for phase 11's time), then
@@ -170,9 +180,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    gated on finite losses and two recoveries), launches exact; the
    detector-only chaos sweep over 150 seeds; and the phase's wall time;
 11. the serving plane (``repro_torch.serving``): the tiny dense (3xTF32
-   flash route), ssm (CUDA-core SSD route, ragged prefills), moe and
-   hybrid engines on the card beside CPU twins of the port from the same
-   weights, greedy and
+   flash route), ssm (CUDA-core SSD route, ragged prefills), moe, hybrid,
+   MLA, MLA with the absorbed decode, and dense and MLA on the chunked
+   attention path engines on the card beside CPU twins of the port from
+   the same weights, greedy and
    top-k, undisturbed, a SCALE_IN after two decode ticks (migration), a
    FAIL_STOP (rebuild) and the drop policy: stats, event logs, summaries
    and streams equal, logits within the kernel-consistency bounds, SCALE_IN
@@ -180,8 +191,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    batch mates; then codeqwen1.5-7b (32 layers, 8.19 B params) and
    mamba2-2.7b (64 layers, 2.70 B) at their published widths and depth,
    and llama4-scout-17b-a16e at its published widths cut to 2 layers
-   (6.47 B, capacity factor 16), in bf16, random weights, 2 replicas x 4
-   slots, 8
+   (6.47 B, capacity factor 16) and deepseek-v3-671b cut to 4 (15.1 B: its
+   3 dense MLA layers and an MoE one; capacity factor 32), in bf16, random
+   weights, 2 replicas x 4 slots, 8
    requests of 1024 prompt and 64 new tokens (four arriving after the
    event): greedy undisturbed, greedy and top-k (temperature 0.7, top_k 40)
    with a SCALE_IN of replica 0 after two decode ticks, every in-flight
@@ -189,13 +201,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    source, the streams the undisturbed run's; the engine's bf16 logits
    against a full-sequence forward (held; codeqwen at its 32 layers,
    mamba2 at its first 8 layers, whose random 64 amplify rounding past any
-   bf16 bound: see ``SERVE_GATE_LAYERS``; llama4-scout's at its 2, a
-   position whose route flipped on a near-tie printed, not held),
+   bf16 bound: see ``SERVE_GATE_LAYERS``; the MoE models' at their cut
+   depth, a position whose route flipped on a near-tie printed, not held),
    every block decoding from the
-   forward's inputs in float32 (held); prefill ms,
+   forward's inputs in float32 (held; an MoE block's experts cast a group
+   at a time); prefill ms,
    decode ms a batched step, tokens/s, migration wall seconds, KV bytes
-   moved, peak device memory; launches exact; then ``launch/serve.py
-   --smoke`` and ``examples/torch_serve.py``;
+   moved, peak device memory; launches exact; then the dense
+   nemotron-4-15b (32 layers, 15.6 B), deepseek-67b and llama3-405b (each
+   cut to 4 layers: 4.45 B, 16.95 B) at their published widths, one
+   replica x 4 slots, 4 greedy requests of 1024 + 16 tokens, with the same
+   two gates; then ``launch/serve.py --smoke`` and
+   ``examples/torch_serve.py``;
 12. a JSON line with every kernel's numbers (each record's ``shape`` names
    the inputs its times were taken on), one with every recovery's, one
    with every scenario's, one with every fuzz run's, one with the serving
@@ -225,7 +242,9 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import (codeqwen1p5_7b,  # noqa: E402
-                                 llama4_scout_17b_a16e, mamba2_2p7b)
+                                 deepseek_67b, deepseek_v3_671b,
+                                 llama3_405b, llama4_scout_17b_a16e,
+                                 mamba2_2p7b, nemotron_4_15b)
 from repro_torch.core.cluster import VirtualCluster  # noqa: E402
 from repro_torch.core.cost_model import HardwareSpec  # noqa: E402
 from repro_torch.core.events import ElasticEvent, EventKind  # noqa: E402
@@ -333,6 +352,16 @@ MOE_ROW_TWIN = dict(moe_row_dispatch=True)
 # the MoE family's float32 twins of phase 4: (family, twin)
 MOE_TWINS = (("moe", "float32"), ("moe", "float32 row dispatch"),
              ("hybrid", "float32"))
+# the MLA twin of phase 4 (twin "mla"): deepseek-v3's smoke config (MLA
+# with q_lora, MoE after one dense layer, float32, capacity factor 1.25),
+# whose 3 steps of 4 items launch exactly these: rmsnorm 4 a block (ln1,
+# q_norm, kv_norm, ln2) and the final norm, 3 x 4 x (4 x 4 + 1); one
+# fused AdamW a stage a step; no flash launch (MLA's attention is plain)
+MLA_TWIN_LAUNCHES = {"rmsnorm": 204, "flash_attention": 0, "fused_adam": 6,
+                     "ssd_scan": 0, "flash_attention_sm90": 0,
+                     "ssd_scan_sm90": 0, "flash_attention_tf32": 0,
+                     "ssd_scan_sm90_f32": 0, "flash_attention_bf16_mma": 0,
+                     "threefry_dropout": 0}
 
 SOURCES = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -1048,7 +1077,9 @@ def kernel_flash(gen) -> dict:
                 f"{plain:.3f} library_ms {med['library']:.4f} "
                 f"(F.scaled_dot_product_attention) bound_ms {b:.4f} ({by})")
         del q, k, v, o, want, qt, kt, vt
-    recs["flash_attention_sm90"]["llama4_scout"] = flash_llama4_shape(gen)
+    for model in FLASH_MODEL_SHAPES:
+        recs["flash_attention_sm90"][model] = flash_model_shape(gen, model)
+        torch.cuda.empty_cache()
     # the bf16 mma.sync route's record: head_dim 32, head_dim 16 beside it;
     # the CUDA-core kernel's: its own times on the same bf16 inputs, and on
     # the float32 main case's
@@ -1063,18 +1094,30 @@ def kernel_flash(gen) -> dict:
     return recs
 
 
-def flash_llama4_shape(gen) -> dict:
-    """The bf16 wgmma route at llama4-scout's attention (its published
-    widths: 40 query heads over 8 kv heads, a group of 5, head_dim 128; a
-    1024-token prefill, causal) against the plain version under the bf16
-    tier, timed beside ``F.scaled_dot_product_attention`` (``enable_gqa``)
-    in 5 interleaved rounds of 10.  Returns its record."""
-    B, S, H, Hkv, d = 1, 1024, 40, 8, 128
+# the wgmma flash route at the published models' prefill shapes (head_dim
+# 128, causal, 8 kv heads): name -> (S, H); llama4-scout's 1024-token
+# prefill at its group of 5, and the dense configs' at groups of 6, 8 and
+# 16: 4096 tokens, and the 1024 of phase 11's served prefills
+FLASH_MODEL_SHAPES = {"llama4_scout": (1024, 40), "nemotron_4_15b": (4096, 48),
+                      "deepseek_67b": (4096, 64), "llama3_405b": (4096, 128),
+                      "nemotron_4_15b_s1024": (1024, 48),
+                      "deepseek_67b_s1024": (1024, 64),
+                      "llama3_405b_s1024": (1024, 128)}
+
+
+def flash_model_shape(gen, model: str) -> dict:
+    """The bf16 wgmma route at a published model's attention
+    (``FLASH_MODEL_SHAPES``: its query heads over 8 kv heads, head_dim
+    128, a prefill of S tokens, causal) against the plain version under
+    the bf16 tier, timed beside ``F.scaled_dot_product_attention``
+    (``enable_gqa``) in 5 interleaved rounds of 10.  Returns its
+    record."""
+    (S, H), B, Hkv, d = FLASH_MODEL_SHAPES[model], 1, 8, 128
     q = torch.randn(B, S, H, d, generator=gen, device="cuda").bfloat16()
     k, v = (torch.randn(B, S, Hkv, d, generator=gen, device="cuda")
             .bfloat16() for _ in "kv")
-    check(uses_sm90(q.dtype, d), "llama4-scout's attention must take the "
-                                 "wgmma flash route")
+    check(uses_sm90(q.dtype, d), f"{model}'s attention must take the "
+                                 f"wgmma flash route")
     before = _build.LAUNCHES["flash_attention_sm90"]
     o = flash_attention_cuda(q, k, v, True)
     check(_build.LAUNCHES["flash_attention_sm90"] == before + 1,
@@ -1083,7 +1126,7 @@ def flash_llama4_shape(gen) -> dict:
     ok, err = within(o, ref.gqa_attention_reference(q, k, v, causal=True),
                      tier)
     name = (f"flash sm90 bf16 S={S} H={H} Hkv={Hkv} hd={d} causal "
-            f"(llama4-scout)")
+            f"({model})")
     log(f"{name}: max_abs_err {err:.3e} tier flash_attention_bf16 ok={ok}")
     check(ok, f"{name} outside flash_attention_bf16")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1096,8 +1139,9 @@ def flash_llama4_shape(gen) -> dict:
     pairs = B * H * S * (S + 1) // 2
     nbytes = (2 * B * S * H * d + 2 * B * S * Hkv * d) * q.element_size()
     b, by = bound(nbytes, 4 * d * pairs, q.dtype)
-    # a launch this short is near the host's dispatch time, so the
-    # profiler's device time a launch stands beside the events' times
+    # a launch as short as llama4-scout's is near the host's dispatch
+    # time, so the profiler's device time a launch stands beside the
+    # events' times
     dev = {which: device_us_by_kernel(fn, 10) for which, fn in (
         ("kernel", lambda: flash_attention_cuda(q, k, v, True)),
         ("library", lambda: F.scaled_dot_product_attention(
@@ -1654,6 +1698,14 @@ def kernel_dropout(gen) -> dict:
     return rec
 
 
+# phase 11's rmsnorm widths (d, width of the tensor its input is a slice
+# of): the block norm at nemotron-4-15b's, deepseek-v3's, deepseek-67b's
+# and llama3-405b's d_model; deepseek-v3's q_norm (q_lora_rank 1536) and
+# kv_norm (kv_lora_rank 512, the first 512 of wkv_a's 512 + 64 outputs)
+SERVE_NORM_WIDTHS = ((6144, 6144), (7168, 7168), (8192, 8192),
+                     (16384, 16384), (1536, 1536), (512, 576))
+
+
 def kernel_path_shapes(gen) -> dict:
     """The main-path kernels at the shapes the later paths give them.
     Phase 7 after a shrink (each item two sequences): rmsnorm in bf16 on
@@ -1662,28 +1714,42 @@ def kernel_path_shapes(gen) -> dict:
     chunk 256, x, B and C views of one silu-activated activation.  Phase 8
     (float32 mamba2, one sequence an item): rmsnorm in float32 on 4096 rows
     of 2560 and 5120, under the float32 ``rmsnorm`` tier (its SSD scan is
-    kernel_ssd's float32 main case).  Each against its plain version under
-    the tier of phase 3.  Returns, by kernel, the records' max_abs_err
-    entries."""
+    kernel_ssd's float32 main case).  Phase 11's served models in bf16, a
+    1024-token prefill and a decode step of 4 slots: rmsnorm on 1024 and 4
+    rows of ``SERVE_NORM_WIDTHS``, MLA's kv_norm input as the path gives
+    it, a slice of wkv_a's wider output.  Each against its plain version
+    under the tier of phase 3.  Returns, by kernel, the records'
+    max_abs_err entries."""
     errs = {"rmsnorm": {}, "ssd_scan_sm90": {}}
+
+    def held(x, tier, key):
+        rows, d = x.shape
+        scale = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        before = _build.LAUNCHES["rmsnorm"]
+        y = rmsnorm_cuda(x, scale, 1e-5)
+        check(_build.LAUNCHES["rmsnorm"] == before + 1,
+              f"rmsnorm_cuda did not launch its kernel for {x.dtype}")
+        ok, err = within(y, ref.rmsnorm_reference(x, scale, 1e-5),
+                         ops.TOLERANCE_TIERS[tier])
+        what = f"rmsnorm {x.dtype} [{rows}, {d}]" + (
+            "" if x.is_contiguous() else f" (row stride {x.stride(0)})")
+        log(f"{what}: max_abs_err {err:.3e} tier {tier} ok={ok}")
+        check(ok, f"{what} outside {tier}")
+        errs["rmsnorm"][key] = max(errs["rmsnorm"].get(key, 0.0), err)
+
     for dtype, rows, tier, key in (
             (torch.bfloat16, 2 * 4096, "rmsnorm_bf16",
              "recovery_shapes_max_abs_err"),
             (torch.float32, 4096, "rmsnorm",
              "float32_path_shapes_max_abs_err")):
         for d in (2560, 5120):
-            x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
-            scale = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
-            before = _build.LAUNCHES["rmsnorm"]
-            y = rmsnorm_cuda(x, scale, 1e-5)
-            check(_build.LAUNCHES["rmsnorm"] == before + 1,
-                  f"rmsnorm_cuda did not launch its kernel for {dtype}")
-            ok, err = within(y, ref.rmsnorm_reference(x, scale, 1e-5),
-                             ops.TOLERANCE_TIERS[tier])
-            log(f"rmsnorm {dtype} [{rows}, {d}]: max_abs_err {err:.3e} tier "
-                f"{tier} ok={ok}")
-            check(ok, f"rmsnorm {dtype} [{rows}, {d}] outside {tier}")
-            errs["rmsnorm"][key] = max(errs["rmsnorm"].get(key, 0.0), err)
+            held(torch.randn(rows, d, generator=gen, device="cuda").to(dtype),
+                 tier, key)
+    for rows in (1024, 4):
+        for d, wide in SERVE_NORM_WIDTHS:
+            x = torch.randn(rows, wide, generator=gen, device="cuda")
+            held(x.bfloat16()[:, :d], "rmsnorm_bf16",
+                 "serving_shapes_max_abs_err")
     b, s, h, p, n, chunk = 2, 4096, 80, 64, 128, 256
     xBC = F.silu(torch.randn(b, s, h * p + 2 * n, generator=gen,
                              device="cuda")).to(torch.bfloat16)
@@ -1713,9 +1779,10 @@ def phase_tiny_twin(family: str, twin: str = "float32",
     bounds; the bf16 configuration of ``BF16_TWINS`` (``twin="bf16"``, seq
     128) or of ``BF16_MMA_TWINS`` (``twin="bf16 hd16"``, ``"bf16 hd32"``,
     dense, seq 128) within the bf16 twins' bound; or ``F32_SM90_SSM_TWIN``
-    (``twin="float32 sm90"``, seq 128) or ``MOE_ROW_TWIN`` (``twin="float32
-    row dispatch"``, seq 16) within the float32 bounds; at ``dropout_rate``
-    under ``rng_mode``.  An MoE config's twin replays the card's experts
+    (``twin="float32 sm90"``, seq 128), ``MOE_ROW_TWIN`` (``twin="float32
+    row dispatch"``, seq 16) or deepseek-v3's smoke config (``twin="mla"``,
+    seq 16) within the float32 bounds; at ``dropout_rate`` under
+    ``rng_mode``.  An MoE config's twin replays the card's experts
     on the CPU where a near-tie flipped (``route_twin``) and counts the
     pairs the card kept: some drop exactly when the capacity factor gives
     an expert fewer places than tokens.  Returns the card's launch
@@ -1723,17 +1790,22 @@ def phase_tiny_twin(family: str, twin: str = "float32",
     name = f"tiny {family} twin ({twin}" + (
         f", dropout {dropout_rate} {rng_mode})" if dropout_rate else ")")
     bf16 = twin.startswith("bf16")
-    over = BF16_TWINS[family] if twin == "bf16" else {
-        "float32": {}, "float32 row dispatch": MOE_ROW_TWIN,
-        "float32 sm90": F32_SM90_SSM_TWIN, **BF16_MMA_TWINS}[twin]
-    cfg = tiny_config(family, **over, dropout_rate=dropout_rate)
+    if twin == "mla":
+        cfg = dataclasses.replace(deepseek_v3_671b.smoke_config(),
+                                  dropout_rate=dropout_rate)
+    else:
+        over = BF16_TWINS[family] if twin == "bf16" else {
+            "float32": {}, "float32 row dispatch": MOE_ROW_TWIN,
+            "float32 sm90": F32_SM90_SSM_TWIN, **BF16_MMA_TWINS}[twin]
+        cfg = tiny_config(family, **over, dropout_rate=dropout_rate)
     if twin in BF16_MMA_TWINS:
         check(f"hd{cfg.head_dim}" == twin.split()[1]
               and (cfg.num_heads, cfg.num_kv_heads) == (4, 2),
               f"{name}: head_dim {cfg.head_dim}, heads {cfg.num_heads}/"
               f"{cfg.num_kv_heads}")
     kw = dict(global_batch=8, num_micro=2,
-              seq_len=16 if twin == "float32" else 128, rng_mode=rng_mode)
+              seq_len=16 if twin in ("float32", "mla") else 128,
+              rng_mode=rng_mode)
     cpu = VirtualCluster(cfg, 2, 2, device="cpu", **kw)
     # the CPU cluster's own tensors: bf16 leaves stay bf16 on the card
     init = (cpu.stem, cpu.layer_params, cpu.head)
@@ -2788,9 +2860,11 @@ SERVE_LOGIT_RTOL = SERVE_BF16["rtol"] * math.sqrt(65)
 # own distance from it plus the bound: the cached decode may add no more
 # than the bound to the error of the no-cache path.  Every block of both
 # models at full depth is held in float32 (SERVE_BLOCK_TIERS)
-# llama4-scout (moe) is served cut to SERVE_MOE_LAYERS layers and held at
-# that depth, against its bf16 forward, to the same bound.
-SERVE_GATE_LAYERS = {"dense": 32, "ssm": 8, "moe": 2}
+# The other models are held at the depth they are served at (llama4-scout
+# and deepseek-v3 cut to SERVE_MOE_CUTS' layers, deepseek-67b and
+# llama3-405b to SERVE_DENSE_LAYERS), against their bf16 forward, to the
+# same bound.  Keyed by config name; absent: the served depth.
+SERVE_GATE_LAYERS = {"mamba2-2.7b": 8}
 SERVE_GATE_FLOAT32 = {"dense": False, "ssm": True, "moe": False}
 # each block, its weights in float32, decoding a step at a time from the
 # bf16 forward's residual stream at its input, against its float32
@@ -2802,21 +2876,58 @@ SERVE_GATE_FLOAT32 = {"dense": False, "ssm": True, "moe": False}
 SERVE_BLOCK_TIERS = {"dense": ops.TOLERANCE_TIERS["flash_attention"],
                      "ssm": ops.TOLERANCE_TIERS["ssd_scan"],
                      "moe": ops.TOLERANCE_TIERS["flash_attention"]}
-# llama4-scout served at its published widths: depth 48 cut to 2 layers,
-# and a capacity factor of num_experts / top_k = 16, so that every expert
-# has a place for every token (Llama 4 drops none; the reference's tests
-# route so where batch mates must not matter); the config keeps 1.25
-SERVE_MOE_LAYERS = 2
-SERVE_MOE_CAPACITY = 16.0
-# the tiny serving twins' depth: the hybrid pattern is 4 layers long
-SERVE_TINY_LAYERS = {"dense": 2, "ssm": 2, "moe": 2, "hybrid": 4}
+# the MoE models served at their published widths, cut: config name ->
+# (layers, capacity factor).  llama4-scout's depth 48 cut to 2 layers;
+# deepseek-v3's 61 to 4 (its 3 dense MLA layers and the first MoE one,
+# 15.1 B params, 30.2 GB in bf16); each at a capacity factor of
+# num_experts / top_k (16; 32), so that every expert has a place for every
+# token: neither model drops tokens, and a decode must route as its
+# forward does (the reference's tests route so where batch mates must not
+# matter); the configs keep 1.25
+SERVE_MOE_CUTS = {"llama4-scout-17b-a16e": (2, 16.0),
+                  "deepseek-v3-671b": (4, 32.0)}
+# the dense configs' depth on the card: nemotron-4-15b at its published 32
+# layers (15.6 B params); deepseek-67b (95) and llama3-405b (126) at 4
+# (4.45 B and 16.95 B: their 67 B and 405 B do not fit one card)
+SERVE_DENSE_LAYERS = {"deepseek-67b": 4, "llama3-405b": 4}
+# the dense configs' serving run: one replica x 4 slots, 4 requests of
+# 1024-token prompts and 16 new tokens, greedy, undisturbed
+SERVE_DENSE_RUN = dict(n_requests=4, prompt_len=1024, max_new=16, slots=4,
+                       replicas=1, timed=True)
+# an MoE block's float32 check casts its experts' weights a group of this
+# many experts at a time: deepseek-v3's 256 experts are 45 GB in float32
+SERVE_EXPERT_GROUP = 16
+# the tiny MLA configuration (tests/test_models_and_perf_paths.py of the
+# reference: v head 24 against a qk head of 16 + 16)
+SERVE_TINY_MLA = dict(use_mla=True, q_lora_rank=32, kv_lora_rank=32,
+                      qk_rope_dim=16, qk_nope_dim=16, v_head_dim=24)
+# chunks of the chunked attention path in the tiny twins: a 12-token
+# prompt takes 3 query chunks and a padded key chunk
+SERVE_TINY_CHUNKS = dict(attn_chunked=True, attn_chunk_q=4, attn_chunk_kv=8)
+# the tiny serving twins: name -> (family, overrides); the hybrid pattern
+# is 4 layers long
+SERVE_TINY_TWINS = {
+    "dense": ("dense", dict(num_layers=2)),
+    "ssm": ("ssm", dict(num_layers=2)),
+    "moe": ("moe", dict(num_layers=2)),
+    "hybrid": ("hybrid", dict(num_layers=4)),
+    "mla": ("moe", dict(SERVE_TINY_MLA, num_layers=2)),
+    "mla absorbed": ("moe", dict(SERVE_TINY_MLA, num_layers=2,
+                                 mla_absorb=True)),
+    "dense chunked": ("dense", dict(SERVE_TINY_CHUNKS, num_layers=2)),
+    "mla chunked": ("moe", dict(SERVE_TINY_MLA, **SERVE_TINY_CHUNKS,
+                                num_layers=2)),
+}
 
 
-def serve_route(cfg, blk: str) -> str:
+def serve_route(cfg, blk: str):
     """The kernel a prefill of ``cfg`` launches once in a block of type
-    ``blk`` (prompts of at least ``ssm_chunk`` tokens)."""
+    ``blk`` (prompts of at least ``ssm_chunk`` tokens); None for MLA and
+    the chunked attention path, whose attention is plain tensor code."""
     dt = cfg.torch_dtype
     if blk in (ATTN, ATTN_MOE):
+        if cfg.use_mla or cfg.attn_chunked:
+            return None
         return "flash_attention_sm90" if uses_sm90(dt, cfg.head_dim) \
             else "flash_attention_bf16_mma" if uses_bf16_mma(dt, cfg.head_dim) \
             else "flash_attention_tf32"
@@ -2829,21 +2940,26 @@ def serve_route(cfg, blk: str) -> str:
 def serve_launches(eng: ServingEngine) -> dict:
     """The launches an engine's run must have made, from its prefills and
     batched decode steps: each prefill one flash or SSD launch a block
-    (by its mixer), each prefill and batched decode step one rmsnorm a
-    block (ln1), one more a Mamba2 block (its gated out_norm) and one more
-    a block with an MLP or MoE MLP (ln2), and the final norm: 2L+1 for
-    codeqwen (ln1, ln2), mamba2 (ln1, out_norm) and llama4-scout (ln1,
-    ln2)."""
+    (by its mixer; none in an MLA block or on the chunked path), each
+    prefill and batched decode step one rmsnorm a block (ln1), one more a
+    Mamba2 block (its gated out_norm), one more a block with an MLP or MoE
+    MLP (ln2), two more an MLA block (kv_norm, and q_norm with a q_lora
+    rank), and the final norm: 2L+1 for codeqwen (ln1, ln2), mamba2 (ln1,
+    out_norm) and llama4-scout (ln1, ln2), 4L+1 for deepseek-v3."""
     cfg = eng.cfg
     prefills = sum(r.prefills for r in eng.requests.values())
     want = {k: 0 for k in _build.LAUNCHES}
     types = R.flat_layer_types(cfg)
+    mla = (1 + bool(cfg.q_lora_rank)) if cfg.use_mla else 0
     norms = 1 + sum(1 + (t in (MAMBA, MAMBA_MOE))
                     + (t in (ATTN_MOE, MAMBA_MOE) or cfg.d_ff > 0)
+                    + (t in (ATTN, ATTN_MOE)) * mla
                     for t in types)
     want["rmsnorm"] = norms * (prefills + eng.decode_calls)
     for t in types:
-        want[serve_route(cfg, t)] += prefills
+        route = serve_route(cfg, t)
+        if route is not None:
+            want[route] += prefills
     return want
 
 
@@ -2873,16 +2989,18 @@ def watching_routes(on_route):
 
 def serve_run(cfg, params, sampler, device, *, event=None, policy=None,
               n_requests=3, prompt_len=12, max_new=6, late=(), late_at=0.0,
-              slots=3, timed=False, routes=None) -> dict:
-    """One engine run: ``n_requests`` seeded prompts (those in ``late``
+              slots=3, replicas=2, timed=False, routes=None) -> dict:
+    """One engine run on ``replicas`` replicas of ``slots`` slots:
+    ``n_requests`` seeded prompts (those in ``late``
     arrive at ``late_at`` simulated seconds), three ticks, then ``event``
     (an ``EventKind``, on replica 0) if given, then drain.  Returns the
     engine, its streams, the logits each sampling step read keyed by (rid,
     position), the event's stats, its launches and, with ``timed``, the
     wall times of each prefill and decode call and of the event.  A dict
     ``routes`` receives, by (rid, position), the router logits [MoE
-    layers, E] of the token whose logits were sampled there."""
-    eng = ServingEngine(cfg, n_replicas=2, slots_per_replica=slots,
+    layers, E] of the token whose logits were sampled there and the
+    experts its dispatch used [MoE layers, top_k]."""
+    eng = ServingEngine(cfg, n_replicas=replicas, slots_per_replica=slots,
                         max_len=prompt_len + max_new + 1, mode="numeric",
                         params=params, sampler=sampler, policy=policy,
                         slo=SLO(ttft=1e9, per_token=1e9), device=device)
@@ -2894,9 +3012,10 @@ def serve_run(cfg, params, sampler, device, *, event=None, policy=None,
             if routes is not None:
                 # a decode step routes the sampled rows in order; a prefill
                 # samples from its prompt's last token
-                routes[(rid, pos)] = torch.stack([
-                    lg[0, j if lg.shape[1] == len(rids) else -1]
-                    for lg in pending]).cpu()
+                at = j if pending[0][0].shape[1] == len(rids) else -1
+                routes[(rid, pos)] = tuple(
+                    torch.stack([t[0, at] for t in ts]).cpu()
+                    for ts in zip(*pending))
         pending.clear()
 
     eng.logit_hook = hook
@@ -2929,7 +3048,8 @@ def serve_run(cfg, params, sampler, device, *, event=None, policy=None,
     with contextlib.ExitStack() as stack:
         if routes is not None:
             stack.enter_context(watching_routes(
-                lambda lg, r: pending.append(lg.detach())))
+                lambda lg, r: pending.append((lg.detach(),
+                                              r["gate_idx"].detach()))))
         run = _serve_ticks(eng, event, device)
     launches = dict(_build.LAUNCHES) if device == "cuda" else None
     if launches is not None:
@@ -2992,8 +3112,11 @@ def _first_divergence(a: list, b: list, base: dict) -> str:
 def phase_serve_twins() -> dict:
     """The tiny dense (float32, head_dim 16: the 3xTF32 flash route), ssm
     (float32, chunk 8: the CUDA-core SSD route; prompts of 12 tokens, so
-    every prefill pads a ragged tail), moe (2 layers, the second MoE) and
-    hybrid (attention, Mamba2 MoE, Mamba2, Mamba2 MoE) engines on the card
+    every prefill pads a ragged tail), moe (2 layers, the second MoE),
+    hybrid (attention, Mamba2 MoE, Mamba2, Mamba2 MoE), MLA (the moe twin
+    with ``SERVE_TINY_MLA``'s latent attention), MLA with the absorbed
+    decode, and dense and MLA on the chunked attention path
+    (``SERVE_TINY_CHUNKS``) engines on the card
     beside a CPU twin of the port from the same weights, 2 replicas x 3
     slots, 3 requests of 6 new tokens, greedy and top-k: undisturbed, a
     SCALE_IN of replica 0 after two decode ticks (migration), a FAIL_STOP
@@ -3004,8 +3127,8 @@ def phase_serve_twins() -> dict:
     depend on batch mates (``batch_free_routing``); launches exact.
     Returns launches by path."""
     counts = {}
-    for family, layers in SERVE_TINY_LAYERS.items():
-        cfg = tiny_config(family, **SERVE_TINY, num_layers=layers)
+    for twin, (family, over) in SERVE_TINY_TWINS.items():
+        cfg = tiny_config(family, **SERVE_TINY, **over)
         cpu = R.init_model(torch.Generator().manual_seed(0), cfg)
         card = params_from_numpy(*cpu, "cuda")
         for sname, sampler in SERVE_SAMPLERS.items():
@@ -3015,7 +3138,7 @@ def phase_serve_twins() -> dict:
                     ("scale-in", EventKind.SCALE_IN, None),
                     ("fail-stop", EventKind.FAIL_STOP, None),
                     ("drop", EventKind.SCALE_IN, DropPolicy())):
-                name = f"serving twin {family} {sname} {scen}"
+                name = f"serving twin {twin} {sname} {scen}"
                 flips = []
                 with route_twin(flips):
                     a = serve_run(cfg, card, sampler, "cuda", event=event,
@@ -3050,26 +3173,25 @@ def phase_serve_twins() -> dict:
                     f"{s.get('kv_bytes_moved', 0)}; launches "
                     f"{ {k: v for k, v in a['launches'].items() if v} }")
                 runs[scen] = a
-                counts[f"serving twin {family} {sname} {scen}"] = \
-                    a["launches"]
+                counts[name] = a["launches"]
             check(runs["scale-in"]["stats"]["migrated"] > 0
                   and runs["scale-in"]["stats"]["dropped"] == 0
                   and runs["drop"]["stats"]["dropped"] > 0
                   and runs["fail-stop"]["stats"]["rebuilt"] > 0,
-                  f"serving twin {family} {sname}: dispositions")
+                  f"serving twin {twin} {sname}: dispositions")
             # at the tiny moe configs' capacity factor 1.25 a decode step's
             # places depend on how many slots are live, so migration may
             # change what drops (the reference's semantics too)
             same = runs["scale-in"]["streams"] \
                 == runs["undisturbed"]["streams"]
             if batch_free_routing(cfg):
-                check(same, f"serving twin {family} {sname}: SCALE_IN "
+                check(same, f"serving twin {twin} {sname}: SCALE_IN "
                             f"streams differ from the undisturbed run's")
             else:
-                log(f"serving twin {family} {sname}: capacity-limited "
+                log(f"serving twin {twin} {sname}: capacity-limited "
                     f"routing; SCALE_IN streams equal the undisturbed "
                     f"run's: {same}")
-            log(f"serving twin {family} {sname}: fail-stop rebuild streams "
+            log(f"serving twin {twin} {sname}: fail-stop rebuild streams "
                 f"equal the undisturbed run's: "
                 f"{runs['fail-stop']['streams'] == runs['undisturbed']['streams']}")
     return counts
@@ -3093,11 +3215,15 @@ def logits_vs_forward(params, cfg, run: dict, float32_ref: bool = False,
     the rows are held against the float32 forward of the same weights instead,
     each allowed, on top of the bound, the bf16 forward's own max |error|
     in that row.  ``routes`` (an MoE model: the engine's router logits by
-    (rid, position), ``serve_run``): each position's experts, layer by
-    layer, against the forward's own.  Where they differ the route flipped
-    on a near-tie of the router's float32 input (the reference's
-    semantics): that position's router logits are held within the same
-    bound of the forward's, and its output logits, another expert's
+    and dispatched experts by (rid, position), ``serve_run``): each
+    position's dispatched experts, layer by layer, against the forward's
+    own.  Where they differ the route flipped on a near-tie of the
+    router's float32 input (the reference's semantics): that position's
+    router logits are held within the same bound of the forward's, at each
+    such layer the forward's gap between the swapped experts within twice
+    the router logits' difference (``route_agreement``; else the decode
+    dispatched to experts its logits did not pick), and its output
+    logits, another expert's
     function rather than a rounding of the same one, are printed, not
     held.  Returns the worst held error (beyond any allowance) as a share
     of the row's max |logit|, and the flips."""
@@ -3113,7 +3239,8 @@ def logits_vs_forward(params, cfg, run: dict, float32_ref: bool = False,
         with contextlib.ExitStack() as stack:
             if routes is not None:
                 stack.enter_context(watching_routes(
-                    lambda lg, r: fwd_routes.append(lg[0].float().cpu())))
+                    lambda lg, r: fwd_routes.append(
+                        (lg[0].float().cpu(), r["gate_idx"][0].cpu()))))
             full = full_forward_logits(params, cfg, seq).float().cpu().numpy()
         ref32 = full_forward_logits(*ref_args, seq).cpu().numpy() \
             if float32_ref else None
@@ -3129,18 +3256,32 @@ def logits_vs_forward(params, cfg, run: dict, float32_ref: bool = False,
             route = None
             if routes is not None:
                 route = route_agreement(
-                    routes[(rid, pos)],
-                    torch.stack([f[pos - 1] for f in fwd_routes]), cfg.top_k)
+                    *routes[(rid, pos)],
+                    *(torch.stack([f[pos - 1] for f in ts])
+                      for ts in zip(*fwd_routes)))
             if route is not None and route["layers"]:
                 flips.append(dict(rid=rid, pos=pos, logits_rel_err=err / scale,
                                   **route))
                 log(f"{where}: route flipped at layers {route['layers']} "
                     f"(engine experts {route['engine']}, forward "
                     f"{route['forward']}; the forward router's margin at "
-                    f"the top-k boundary {route['margin']}); at the first, "
-                    f"router logits within {route['router_rel_diff']:.4e} "
-                    f"of max |router logit|; output logits "
-                    f"{err / scale:.4e} of max |logit| (printed, not held)")
+                    f"the top-k boundary {route['margin']}; the forward's "
+                    f"gap between the swapped experts against 2 x max "
+                    f"|router logit difference| at those layers: "
+                    + ", ".join(f"{w['gap']:.4e} <= {2 * w['delta']:.4e}"
+                                for w in route["swap"])
+                    + f"); at the first, router logits within "
+                    f"{route['router_rel_diff']:.4e} of max |router logit|;"
+                    f" output logits {err / scale:.4e} of max |logit| "
+                    f"(printed, not held)")
+                for layer, w in zip(route["layers"], route["swap"]):
+                    check(w["gap"] <= 2 * w["delta"]
+                          + ROUTE_SWAP_SLACK * w["scale"],
+                          f"{where}: at layer {layer} the forward ranks the "
+                          f"experts only it took {w['gap']:.4e} above those "
+                          f"only the engine took, more than 2 x the router "
+                          f"logits' difference {w['delta']:.4e}: the "
+                          f"engine's dispatch did not route by its logits")
                 check(route["router_rel_diff"] <= rtol,
                       f"{where}: router logits {route['router_rel_diff']:.4e}"
                       f" of max |router logit| off the forward's at layer "
@@ -3175,31 +3316,92 @@ def logits_vs_forward(params, cfg, run: dict, float32_ref: bool = False,
                 **({} if routes is None else {"route_flips": flips}))
 
 
-def route_agreement(eng: torch.Tensor, fwd: torch.Tensor, k: int) -> dict:
+def route_agreement(eng: torch.Tensor, eng_experts: torch.Tensor,
+                    fwd: torch.Tensor, fwd_experts: torch.Tensor) -> dict:
     """Router logits [MoE layers, E] of one token in the engine and in the
-    forward: the layers whose top-k experts differ, both sides' experts
-    there, the forward's margin between its k-th and (k+1)-th logit at
-    every layer, and, at the first layer whose experts differ (every later
-    layer's input follows from the other expert's output), the largest
-    difference of the logits as a share of the forward's largest
-    |logit|."""
-    e_eng = eng.topk(k).indices.sort(dim=-1).values
-    e_fwd = fwd.topk(k).indices.sort(dim=-1).values
+    forward, and the experts [MoE layers, k] each one's dispatch used: the
+    layers whose experts differ, both sides' experts there, the forward's
+    margin between its k-th and (k+1)-th logit at every layer, and, at
+    each layer whose experts differ, ``swap``: the forward's largest logit
+    of an expert only it took less its smallest logit of an expert only
+    the engine took (``gap``) beside the largest |difference| of the two
+    sides' router logits there (``delta``).  A route flipped by the
+    difference alone has ``gap <= 2 * delta``: the engine ranked each
+    expert it took no lower than each it left.  ``router_rel_diff``: at
+    the first layer whose experts differ (every later layer's input
+    follows from the other expert's output), the largest |difference| as
+    a share of the forward's largest |logit|."""
+    k = fwd_experts.shape[-1]
+    e_eng = eng_experts.sort(dim=-1).values
+    e_fwd = fwd_experts.sort(dim=-1).values
     layers = [i for i in range(len(eng)) if not torch.equal(e_eng[i],
                                                             e_fwd[i])]
     top = fwd.topk(k + 1).values
+    swap = []
+    for i in layers:
+        only_fwd = sorted(set(e_fwd[i].tolist()) - set(e_eng[i].tolist()))
+        only_eng = sorted(set(e_eng[i].tolist()) - set(e_fwd[i].tolist()))
+        swap.append(dict(
+            gap=float(fwd[i, only_fwd].max() - fwd[i, only_eng].min()),
+            delta=float((eng[i] - fwd[i]).abs().max()),
+            scale=float(fwd[i].abs().max())))
     first = layers[0] if layers else 0
     return dict(layers=layers, engine=[e_eng[i].tolist() for i in layers],
                 forward=[e_fwd[i].tolist() for i in layers],
                 margin=[round(float(m), 6) for m in top[:, k - 1] - top[:, k]],
+                swap=swap,
                 router_rel_diff=float((eng[first] - fwd[first]).abs().max()
                                       / fwd[first].abs().max()))
 
 
+# a route flip's gap may exceed twice the router logits' difference by the
+# float32 softmax's rounding, which the top-k reads: this share of the
+# layer's largest |router logit|
+ROUTE_SWAP_SLACK = 2.0 ** -20
+
+
+EXPERT_LEAVES = ("wg", "wu", "wo")
+
+
+def float32_block(p: dict) -> dict:
+    """A block's weights in float32, but an MoE block's expert weights as
+    they are: ``float32_expert_groups`` casts them a group at a time where
+    they are used (the cast is exact, so the products are the float32
+    block's)."""
+    out = float32_params({k: v for k, v in p.items() if k != "moe"})
+    if "moe" in p:
+        out["moe"] = {k: v if k in EXPERT_LEAVES else float32_params(v)
+                      for k, v in p["moe"].items()}
+    return out
+
+
+@contextlib.contextmanager
+def float32_expert_groups():
+    """While open, an MoE layer's expert products run ``SERVE_EXPERT_GROUP``
+    experts at a time, each group's weights cast to the buckets' dtype
+    (float32) there: the float32 copy of deepseek-v3's 256 experts (45 GB)
+    would not fit beside the bf16 model."""
+    orig = moe._experts
+
+    def grouped(params, cfg, buckets):
+        out = torch.empty_like(buckets)
+        for e in range(0, cfg.num_experts, SERVE_EXPERT_GROUP):
+            sl = slice(e, e + SERVE_EXPERT_GROUP)
+            out[sl] = orig({k: params[k][sl].to(buckets.dtype)
+                            for k in EXPERT_LEAVES}, cfg, buckets[sl])
+        return out
+    moe._experts = grouped
+    try:
+        yield
+    finally:
+        moe._experts = orig
+
+
 def blocks_vs_forward(params, cfg, run: dict) -> float:
     """Request 0's sequence through the model once, the residual stream
-    kept at each block's input; then each block, its weights cast to
-    float32, runs its full-sequence forward on that input and, on the
+    kept at each block's input; then each block, its weights in float32
+    (``float32_block``, an MoE block's experts cast a group at a time),
+    runs its full-sequence forward on that input and, on the
     same input, prefills the prompt's rows and decodes the rest a step at
     a time, each step's output within ``SERVE_BLOCK_TIERS`` of the float32
     forward's row (held).  No error crosses a block or a step here.
@@ -3216,18 +3418,20 @@ def blocks_vs_forward(params, cfg, run: dict) -> float:
     ctx = RngCtx()
     worst = 0.0
     for i, (blk, p) in enumerate(zip(types, layers)):
-        p32, x32 = float32_params(p), x.float()
+        p32, x32 = float32_block(p), x.float()
         full = T.init_block_cache(cfg32, blk, 1, S, device="cuda")
-        y, _ = T.apply_block(p32, cfg32, blk, x32, pos, ctx, i, cache=full,
-                             cache_index=0)
-        cache = T.init_block_cache(cfg32, blk, 1, S + 1, device="cuda")
-        T.apply_block(p32, cfg32, blk, x32[:, :P], pos[:, :P], ctx, i,
-                      cache=cache, cache_index=0)
-        for t in range(P, S):
-            got, _ = T.apply_block(p32, cfg32, blk, x32[:, t:t + 1],
+        with float32_expert_groups():
+            y, _ = T.apply_block(p32, cfg32, blk, x32, pos, ctx, i,
+                                 cache=full, cache_index=0)
+            cache = T.init_block_cache(cfg32, blk, 1, S + 1, device="cuda")
+            T.apply_block(p32, cfg32, blk, x32[:, :P], pos[:, :P], ctx, i,
+                          cache=cache, cache_index=0)
+            steps = [T.apply_block(p32, cfg32, blk, x32[:, t:t + 1],
                                    pos[:, t:t + 1], ctx, i, cache=cache,
-                                   cache_index=torch.tensor([t],
-                                                            device="cuda"))
+                                   cache_index=torch.tensor(
+                                       [t], device="cuda"))[0]
+                     for t in range(P, S)]
+        for t, got in zip(range(P, S), steps):
             err = float((got[0, 0] - y[0, t]).abs().max())
             scale = float(y[0, t].abs().max())
             worst = max(worst, err / scale)
@@ -3235,7 +3439,7 @@ def blocks_vs_forward(params, cfg, run: dict) -> float:
                   f"{cfg.name} serving: block {i} ({blk}, float32) decode "
                   f"at position {t}: max_abs_err {err:.4e} beyond "
                   f"{tier['rtol']:g} x max |output| {scale:.3f}")
-        del p32, x32, full, cache, y
+        del p32, x32, full, cache, y, steps
         x, _ = T.apply_block(p, cfg, blk, x, pos, ctx, i,
                              cache=T.init_block_cache(cfg, blk, 1, S,
                                                       device="cuda"),
@@ -3256,18 +3460,31 @@ def full_forward_logits(params, cfg, tokens: list) -> torch.Tensor:
     return T.forward(params, cfg, t, caches=caches, cache_index=0)[0][0]
 
 
-def phase_serve_full(cfg) -> tuple:
-    """``cfg`` at its published widths and depth (llama4-scout cut, see
-    ``SERVE_MOE_LAYERS``), bf16, random weights from seed 0 on the card, 2
-    replicas x 4 slots, 8 requests of 1024-token prompts and 64 new tokens: requests 0-3 arrive at 0, 4-7 at 4.0
-    simulated seconds (after the event).  Greedy undisturbed (its logits
-    against a full-sequence forward: see ``SERVE_GATE_LAYERS``), greedy with
-    a SCALE_IN of replica 0 after two decode ticks (every in-flight request
-    migrates, zero drops, the slots equal their source bitwise, the streams
-    the undisturbed run's), and a top-k run (temperature 0.7, top_k 40)
-    with the same SCALE_IN.  Where ``SERVE_GATE_LAYERS`` cuts the depth,
-    the greedy undisturbed run again on the first layers, for gate 1.
-    Launches exact.  Returns (launches by run, record)."""
+# the full-width serving runs: (sampler name, sampler, scenario, event)
+SERVE_FULL_RUNS = (("greedy", SamplerConfig(), "undisturbed", None),
+                   ("greedy", SamplerConfig(), "scale-in", EventKind.SCALE_IN),
+                   ("top-k", SERVE_FULL_TOPK, "scale-in", EventKind.SCALE_IN))
+# by default 2 replicas x 4 slots, 8 requests of 1024-token prompts and 64
+# new tokens: requests 0-3 arrive at 0, 4-7 at 4.0 simulated seconds
+# (after the event)
+SERVE_FULL_RUN = dict(n_requests=8, prompt_len=1024, max_new=64,
+                      late=range(4, 8), late_at=4.0, slots=4, timed=True)
+
+
+def phase_serve_full(cfg, plan=SERVE_FULL_RUNS, **kw) -> tuple:
+    """``cfg`` at its published widths (its depth cut where
+    ``SERVE_MOE_CUTS`` or ``SERVE_DENSE_LAYERS`` say), bf16, random weights
+    from seed 0 on the card, serving ``plan`` with ``serve_run``'s keywords
+    ``kw`` (default ``SERVE_FULL_RUN``): greedy undisturbed (its logits
+    against a full-sequence forward: see ``SERVE_GATE_LAYERS``), and by
+    default greedy with a SCALE_IN of replica 0 after two decode ticks
+    (every in-flight request migrates, zero drops, the slots equal their
+    source bitwise, the streams the undisturbed run's) and a top-k run
+    (temperature 0.7, top_k 40) with the same SCALE_IN.  Where
+    ``SERVE_GATE_LAYERS`` cuts the depth, the greedy undisturbed run again
+    on the first layers, for gate 1.  Launches exact.  Returns (launches
+    by run, record)."""
+    kw = kw or SERVE_FULL_RUN
     name = cfg.name
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3278,15 +3495,10 @@ def phase_serve_full(cfg) -> tuple:
     log(f"{name} serving: {cfg.num_layers} layers, {n_params:,} params "
         f"({str(cfg.torch_dtype)[6:]}), drawn in "
         f"{time.perf_counter() - t0:.1f} s")
-    kw = dict(n_requests=8, prompt_len=1024, max_new=64, late=range(4, 8),
-              late_at=4.0, slots=4, timed=True)
     runs, counts = {}, {}
     # an MoE model's base run keeps each sampled token's router logits
     routes = {} if cfg.num_experts else None
-    for sname, sampler, scen, event in (
-            ("greedy", SamplerConfig(), "undisturbed", None),
-            ("greedy", SamplerConfig(), "scale-in", EventKind.SCALE_IN),
-            ("top-k", SERVE_FULL_TOPK, "scale-in", EventKind.SCALE_IN)):
+    for sname, sampler, scen, event in plan:
         r = serve_run(cfg, params, sampler, "cuda", event=event,
                       routes=routes if event is None else None, **kw)
         runs[(sname, scen)] = r
@@ -3317,7 +3529,7 @@ def phase_serve_full(cfg) -> tuple:
     # the same tokens at SERVE_GATE_LAYERS' depth, and every block's decode
     # against its forward from the same inputs in float32 (both held)
     base = runs[("greedy", "undisturbed")]
-    depth = SERVE_GATE_LAYERS[cfg.family]
+    depth = SERVE_GATE_LAYERS.get(name, cfg.num_layers)
     float32_ref = SERVE_GATE_FLOAT32[cfg.family]
     if depth == cfg.num_layers:
         gate = logits_vs_forward(params, cfg, base, float32_ref, routes)
@@ -3333,11 +3545,11 @@ def phase_serve_full(cfg) -> tuple:
     gate["block_max_rel_err"] = blocks_vs_forward(params, cfg, base)
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"{name} serving: peak device memory {peak:.2f} GB")
-    mig = runs[("greedy", "scale-in")]
+    mig = runs.get(("greedy", "scale-in"))
     rec = dict(params=n_params, layers=cfg.num_layers, logits=gate,
                peak_gb=peak,
-               kv_bytes_moved=mig["stats"]["kv_bytes_moved"],
-               migration_s=mig["event_s"],
+               kv_bytes_moved=mig and mig["stats"]["kv_bytes_moved"],
+               migration_s=mig and mig["event_s"],
                runs={f"{k[0]} {k[1]}": dict(
                    wall_s=r["wall"],
                    tokens=sum(len(s) for s in r["streams"]),
@@ -3368,21 +3580,33 @@ def _param_leaves(params) -> list:
 
 def phase_serve() -> tuple:
     """Phase 11: the serving twins, codeqwen1.5-7b and mamba2-2.7b at full
-    width and depth, llama4-scout-17b-a16e at full width (2 layers,
-    capacity factor 16), then ``launch/serve.py --smoke`` and
-    ``examples/torch_serve.py`` on the card.  Returns (launches by path,
-    records, wall seconds)."""
+    width and depth, llama4-scout-17b-a16e (2 layers, capacity factor 16)
+    and deepseek-v3-671b (4 layers, capacity factor 32) at full width, the
+    dense nemotron-4-15b (full depth), deepseek-67b and llama3-405b (4
+    layers each) at full width in ``SERVE_DENSE_RUN``, then
+    ``launch/serve.py --smoke`` and ``examples/torch_serve.py`` on the
+    card.  Returns (launches by path, records, wall seconds)."""
     t0 = time.perf_counter()
     counts = phase_serve_twins()
     recs = {}
-    llama4 = dataclasses.replace(llama4_scout_17b_a16e.config(),
-                                 num_layers=SERVE_MOE_LAYERS,
-                                 capacity_factor=SERVE_MOE_CAPACITY)
-    check(SERVE_MOE_CAPACITY == llama4.num_experts / llama4.top_k,
-          "llama4-scout's serving capacity factor must give every expert a "
-          "place for every token")
-    for cfg in (codeqwen1p5_7b.config(), mamba2_2p7b.config(), llama4):
+    moes = []
+    for mod in (llama4_scout_17b_a16e, deepseek_v3_671b):
+        cfg = mod.config()
+        layers, factor = SERVE_MOE_CUTS[cfg.name]
+        check(factor == cfg.num_experts / cfg.top_k,
+              f"{cfg.name}'s serving capacity factor must give every expert "
+              f"a place for every token")
+        moes.append(dataclasses.replace(cfg, num_layers=layers,
+                                        capacity_factor=factor))
+    for cfg in (codeqwen1p5_7b.config(), mamba2_2p7b.config(), *moes):
         c, recs[cfg.name] = phase_serve_full(cfg)
+        counts.update(c)
+    for mod in (nemotron_4_15b, deepseek_67b, llama3_405b):
+        cfg = mod.config()
+        cfg = dataclasses.replace(cfg, num_layers=SERVE_DENSE_LAYERS.get(
+            cfg.name, cfg.num_layers))
+        c, recs[cfg.name] = phase_serve_full(cfg, SERVE_FULL_RUNS[:1],
+                                             **SERVE_DENSE_RUN)
         counts.update(c)
     for label, fn in (
             ("launch/serve.py --smoke (mamba2-2.7b smoke, top-k)",
@@ -3503,6 +3727,9 @@ def main() -> None:
               f"route{' and the CUDA-core SSD route' if ssd else ''} only: "
               f"{counts}")
         tiny_moe[(family, twin)] = counts
+    tiny_mla = phase_tiny_twin("moe", "mla")
+    check(tiny_mla == MLA_TWIN_LAUNCHES, f"tiny MLA twin: launches "
+                                         f"{tiny_mla} != {MLA_TWIN_LAUNCHES}")
     twin_dense = phase_tiny_recovery_twin("dense")
     check(twin_dense["flash_attention_tf32"] > 0
           and twin_dense["flash_attention"] == 0
@@ -3621,7 +3848,9 @@ def main() -> None:
             ("ssd_scan", "tiny-hybrid twin (float32)",
              tiny_moe[("hybrid", "float32")]),
             ("flash_attention_tf32", "tiny-moe recovery twin (float32)",
-             twin_moe)):
+             twin_moe),
+            ("rmsnorm", "tiny MLA twin (float32)", tiny_mla),
+            ("fused_adam", "tiny MLA twin (float32)", tiny_mla)):
         by_name[name]["launches_by_path"][path] = counts[name]
     log(card)
     log(json.dumps({"kernels": kernels}))

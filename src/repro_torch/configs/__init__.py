@@ -1,12 +1,10 @@
 """Published model configs the port runs.  ``get_config(arch_id)`` returns
 the exact published config; ``get_smoke_config(arch_id)`` a reduced
-same-family config for CPU smoke runs.  The reference's other six
-architectures (``repro.configs.ARCH_IDS``) wait for the slices that port
-what they need, and their ids raise: deepseek-v3-671b waits for MLA (its
-latent attention); llama3-405b, deepseek-67b and nemotron-4-15b, whose
-dense blocks the port already runs, for the slice that adds their configs
-and card checks; internvl2-76b for the VLM front end (prefix embeddings);
-whisper-base for the enc-dec model."""
+same-family config for CPU smoke runs.  Every decoder-only architecture of
+the reference (``repro.configs.ARCH_IDS``) is here; its other two wait for
+the slices that port what they need, and their ids raise ``KeyError``:
+internvl2-76b for the VLM front end (prefix embeddings), whisper-base for
+the enc-dec model."""
 from __future__ import annotations
 
 import importlib
@@ -19,6 +17,10 @@ ARCH_IDS: List[str] = [
     "codeqwen1p5_7b",
     "llama4_scout_17b_a16e",
     "jamba_1p5_large_398b",
+    "deepseek_v3_671b",
+    "llama3_405b",
+    "deepseek_67b",
+    "nemotron_4_15b",
 ]
 
 _ALIASES = {
@@ -26,6 +28,10 @@ _ALIASES = {
     "codeqwen1.5-7b": "codeqwen1p5_7b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "jamba-1.5-large-398b": "jamba_1p5_large_398b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "llama3-405b": "llama3_405b",
+    "deepseek-67b": "deepseek_67b",
+    "nemotron-4-15b": "nemotron_4_15b",
 }
 
 

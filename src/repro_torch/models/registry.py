@@ -92,10 +92,10 @@ class ServingHooks:
 
 
 def serving_hooks(cfg: ModelConfig, device=None) -> ServingHooks:
-    """The hooks of a decoder-only config of attention and Mamba2 blocks
-    with dense or MoE MLPs, with caches on ``device``.  An enc-dec config
-    (the audio family), MLA and modality prefix embeddings are not ported
-    and raise, naming the slice that ports them."""
+    """The hooks of a decoder-only config of attention (GQA or MLA) and
+    Mamba2 blocks with dense or MoE MLPs, with caches on ``device``.  An
+    enc-dec config (the audio family) and modality prefix embeddings are
+    not ported and raise, naming the slice that ports them."""
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: enc-dec serving waits for the enc-dec slice of "
@@ -104,10 +104,6 @@ def serving_hooks(cfg: ModelConfig, device=None) -> ServingHooks:
         raise NotImplementedError(
             f"{cfg.name}: modality prefix embeddings wait for the VLM "
             f"front-end slice of the port")
-    if cfg.use_mla:
-        raise NotImplementedError(
-            f"{cfg.name}: serving MLA (deepseek-v3's latent attention) waits "
-            f"for the MLA slice of the port")
 
     def init_caches(batch, max_len):
         return T.init_caches(cfg, batch, max_len, device)
@@ -136,10 +132,9 @@ def tiny_config(family: str = "dense", **kw) -> ModelConfig:
     """Reduced config of a family for CPU tests, field for field the
     reference's.  Every family's config is data for the cost model and the
     scenario engine; the dense, moe, ssm and hybrid families build, train
-    and serve (attention and Mamba2 blocks, dense or MoE MLPs).  The audio
-    family's encoder and the vlm family's prefix embeddings wait for their
-    slices (``serving_hooks`` raises), MLA (``use_mla``) too
-    (``transformer.init_block`` raises)."""
+    and serve (attention, GQA or MLA (``use_mla``), and Mamba2 blocks,
+    dense or MoE MLPs).  The audio family's encoder and the vlm family's
+    prefix embeddings wait for their slices (``serving_hooks`` raises)."""
     base = dict(name=f"tiny-{family}", family=family, num_layers=4, d_model=64,
                 num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=256,
                 rope_theta=10000.0, dtype="float32")

@@ -9,7 +9,9 @@ reference's stacked tree into it), and its caches a per-layer list
 the reference stacks layers of a segment on a leading axis.  Caches are
 updated in place.
 
-MLA (deepseek-v3's latent attention) waits for a later slice of the port.
+Attention blocks are GQA or, under ``cfg.use_mla``, deepseek-v3's latent
+attention (``layers.apply_mla``), whose cache is the latent pair
+``{"c_kv", "k_rope"}``.
 """
 from __future__ import annotations
 
@@ -37,11 +39,10 @@ def _has_mlp(cfg: ModelConfig, blk: str) -> bool:
 
 
 def _check_ported(cfg: ModelConfig, blk: str) -> None:
-    if blk not in (ATTN, ATTN_MOE, MAMBA, MAMBA_MOE) \
-            or (_is_attn(blk) and cfg.use_mla):
+    if blk not in (ATTN, ATTN_MOE, MAMBA, MAMBA_MOE):
         raise NotImplementedError(
-            f"block {blk!r} (use_mla={cfg.use_mla}) is not ported yet: the "
-            f"port runs attention and Mamba2 blocks with dense or MoE MLPs")
+            f"block {blk!r} is not ported yet: the port runs attention (GQA "
+            f"or MLA) and Mamba2 blocks with dense or MoE MLPs")
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig,
@@ -50,7 +51,8 @@ def init_block(gen: torch.Generator, cfg: ModelConfig,
     dev = gen.device
     p: Dict[str, Any] = {"ln1": L.init_rmsnorm(cfg.d_model, dev)}
     if _is_attn(blk):
-        p["attn"] = L.init_attention(gen, cfg)
+        p["attn"] = L.init_mla(gen, cfg) if cfg.use_mla \
+            else L.init_attention(gen, cfg)
     else:
         p["mamba"] = M.init_mamba(gen, cfg)
     if _has_mlp(cfg, blk):
@@ -72,9 +74,9 @@ def apply_block(params, cfg: ModelConfig, blk: str, x, positions,
     ctx = rng_ctx.layer(layer_id)
     h = L.rmsnorm(params["ln1"], x, cfg.norm_eps)
     if _is_attn(blk):
-        a, _ = L.apply_attention(params["attn"], cfg, h, positions,
-                                 kv_cache=cache, cache_index=cache_index,
-                                 rows=rows)
+        attend = L.apply_mla if cfg.use_mla else L.apply_attention
+        a, _ = attend(params["attn"], cfg, h, positions, kv_cache=cache,
+                      cache_index=cache_index, rows=rows)
     else:
         a, _ = M.apply_mamba(params["mamba"], cfg, h, state=cache,
                              cache_index=cache_index, rows=rows)

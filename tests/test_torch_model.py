@@ -157,14 +157,25 @@ def test_params_carry_bf16_leaves_exactly():
 
 
 def test_unported_paths_raise():
-    """MLA still raises; an MoE block builds (since the MoE slice, with the
-    reference's leaves: router, experts and no dense MLP) and returns its
-    load-balancing loss; dropout at a positive rate runs (the reference's
-    masks, ``test_torch_threefry.py``): kept elements are scaled by
-    fl32(1 / fl32(0.9)), the rest are zero."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        R.init_layer(torch.Generator().manual_seed(0),
-                     R.tiny_config("dense", use_mla=True), 0)
+    """Nothing here raises any more (the name is kept from when MLA and
+    MoE blocks did): an MLA layer builds (since the MLA slice) with the
+    reference's leaves, shapes and dtypes, and runs; an MoE block builds
+    (since the MoE slice, with the reference's leaves: router, experts and
+    no dense MLP) and returns its load-balancing loss; dropout at a
+    positive rate runs (the reference's masks, ``test_torch_threefry.py``):
+    kept elements are scaled by fl32(1 / fl32(0.9)), the rest are zero."""
+    mla, mla_j = (f("dense", use_mla=True, q_lora_rank=32, kv_lora_rank=16,
+                    qk_rope_dim=8, qk_nope_dim=8, v_head_dim=12)
+                  for f in (R.tiny_config, JR.tiny_config))
+    p = R.init_layer(torch.Generator().manual_seed(0), mla, 0)
+    want = JR.init_layer(jax.random.key(0), mla_j, 0)
+    got = jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype)[6:]), p)
+    assert got == jax.tree.map(lambda a: (a.shape, a.dtype.name), want)
+    h = torch.randn(2, 8, mla.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    y, _ = R.apply_layer(p, mla, 0, h, torch.arange(8)[None].expand(2, 8),
+                         RngCtx())
+    assert y.shape == h.shape and bool(torch.isfinite(y).all())
     moe, moe_j = R.tiny_config("moe"), JR.tiny_config("moe")
     p = R.init_layer(torch.Generator().manual_seed(0), moe, 1)
     want = JR.init_layer(jax.random.key(0), moe_j, 1)

@@ -219,7 +219,8 @@ def test_bf16_prefill_and_decode_logits():
 
 
 # the moe and hybrid families serve since the MoE slice: their cases build
-# the hooks and run a tiny engine beside the reference's
+# the hooks and run a tiny engine beside the reference's (MLA serves since
+# the MLA slice: tests/test_torch_mla_model.py::test_engine_twin_vs_reference)
 MOE_SERVE = {"moe": dict(num_layers=2, d_model=32, num_heads=2,
                          num_kv_heads=1, d_ff=64, moe_d_ff=32,
                          vocab_size=128),
@@ -231,7 +232,6 @@ MOE_SERVE = {"moe": dict(num_layers=2, d_model=32, num_heads=2,
     ("hybrid", {}, "MoE"),
     ("audio", {}, "enc-dec"),
     ("vlm", {}, "prefix embeddings"),
-    ("dense", {"use_mla": True}, "MLA"),
 ])
 def test_serving_hooks_raise_for_unported_families(family, kw, match):
     if family in MOE_SERVE:
@@ -275,30 +275,59 @@ def _moe_engine_twin(family):
 
 
 def test_chunked_attention_still_raises():
-    cfg = R.tiny_config("dense", num_layers=1, attn_chunked=True)
-    hooks = R.serving_hooks(cfg, "cpu")
-    params = R.init_model(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="chunked"):
-        hooks.prefill(params, torch.zeros(1, 4, dtype=torch.int64),
-                      hooks.init_caches(1, 8), None)
+    """No longer raises (the name is kept from before the chunked path was
+    ported): the serving hooks on the chunked attention path (chunks of 4
+    and 8 over an 11-token prompt): the prefill's logits and caches, then
+    three batched decode steps at per-row positions, against the
+    reference's chunked model from the same weights."""
+    kw = dict(FAMILIES["dense-gqa"][1], dropout_rate=0.0, attn_chunked=True,
+              attn_chunk_q=4, attn_chunk_kv=8)
+    cfg_j, cfg_t = JR.tiny_config("dense", **kw), R.tiny_config("dense", **kw)
+    params_j = JT.init_params(jax.random.key(0), cfg_j)
+    params_t = params_from_stacked(cfg_t, params_j, "cpu")
+    hooks = R.serving_hooks(cfg_t, "cpu")
+    rng = np.random.default_rng(6)
+    tok = rng.integers(0, cfg_t.vocab_size, size=(2, 11)).astype(np.int32)
+    lj, cj = JT.prefill(params_j, cfg_j, jnp.asarray(tok),
+                        JT.init_caches(cfg_j, 2, MAX_LEN))
+    lt, ct = hooks.prefill(params_t, torch.as_tensor(tok),
+                           hooks.init_caches(2, MAX_LEN), None)
+    _close(lt, np.asarray(lj)[:, -1])
+    _check_caches(ct, cj, cfg_t)
+    pos = np.array([11, 6])
+    for _ in range(3):
+        tok = rng.integers(0, cfg_t.vocab_size, size=(2, 1)).astype(np.int32)
+        lj, cj = JT.decode_step(params_j, cfg_j, jnp.asarray(tok), cj,
+                                jnp.asarray(pos, jnp.int32))
+        lt, ct = hooks.decode_step(params_t, torch.as_tensor(tok), ct,
+                                   torch.as_tensor(pos), None)
+        _close(lt, np.asarray(lj)[:, -1])
+        _check_caches(ct, cj, cfg_t)
+        pos = pos + 1
 
 
 def test_configs_cover_the_ported_archs():
     assert configs.ARCH_IDS == ["mamba2_2p7b", "codeqwen1p5_7b",
                                 "llama4_scout_17b_a16e",
-                                "jamba_1p5_large_398b"]
+                                "jamba_1p5_large_398b", "deepseek_v3_671b",
+                                "llama3_405b", "deepseek_67b",
+                                "nemotron_4_15b"]
     assert configs.get_config("llama4-scout-17b-a16e").num_experts == 16
     assert configs.get_smoke_config("jamba-1.5-large-398b").family == \
         "hybrid"
     assert configs.get_config("codeqwen1.5-7b").num_layers == 32
     assert configs.get_smoke_config("mamba2-2.7b").family == "ssm"
-    with pytest.raises(KeyError, match="llama3_405b"):
-        configs.get_config("llama3_405b")
+    assert configs.get_config("deepseek-v3-671b").use_mla
+    for arch in ("whisper_base", "internvl2-76b"):
+        with pytest.raises(KeyError, match=arch):
+            configs.get_config(arch)
 
 
 @pytest.mark.parametrize("arch", ["codeqwen1p5_7b", "mamba2_2p7b",
                                   "llama4_scout_17b_a16e",
-                                  "jamba_1p5_large_398b"])
+                                  "jamba_1p5_large_398b", "deepseek_v3_671b",
+                                  "llama3_405b", "deepseek_67b",
+                                  "nemotron_4_15b"])
 def test_full_size_cache_shapes_on_meta(arch):
     """The full configs' caches as shapes only (the meta device), equal to
     the reference's ``cache_shapes`` leaf for leaf."""
