@@ -123,11 +123,12 @@ Phases, in order; any failure exits non-zero and prints no result:
 5. the dense main path: ``VirtualCluster.train_step`` on codeqwen1.5-7b at
    its published widths and dtype, depth cut to 2 layers, dp=2, pp=2, seq
    4096, one step without dropout (cut from 2 for phase 11's time), then
-   2 steps at dropout 0.1 (``rng_mode="reshard"``), each with exact kernel
+   one step at dropout 0.1 (``rng_mode="reshard"``; cut from 2 for phase
+   12's time), each with exact kernel
    launch counts (every flash launch on the tensor-core route, every
-   dropout forward and backward on the dropout kernel: 64 launches) and
+   dropout forward and backward on the dropout kernel: 32 launches) and
    the host ring snapshot bitwise equal to the device shards after every
-   step, the dropout path's second step under
+   step, the dropout path's step under
    ``torch.profiler``: device time by kind (each hand-written kernel,
    cuBLAS products, other ATen kernels, memcpy by direction) and the
    device-busy share from the step's start to the snapshot's;
@@ -237,11 +238,35 @@ Phases, in order; any failure exits non-zero and prints no result:
    one ``train_loss`` with the prefix, forward and backward
    (``phase_vlm_prefix``); then ``launch/serve.py --smoke`` (mamba2-2.7b
    and whisper-base) and ``examples/torch_serve.py``;
-12. a JSON line with every kernel's numbers (each record's ``shape`` names
-   the inputs its times were taken on), one with every recovery's, one
+12. the whole-model training launcher (``repro_torch.launch.train``):
+   mamba2-2.7b at its published size (64 layers, 2.70 B params, bf16)
+   through the launcher's command line, seq 512 x batch 2, 3 steps, and
+   codeqwen1.5-7b at its published widths cut to 8 layers (2.62 B: its 32
+   layers' weights, gradients and AdamW state would take 131 GB) through
+   ``train``, seq 1024 x batch 2, 2 steps: every tree on the card
+   (weights, gradients, float32 master, mu and nu: 12 bytes a parameter,
+   checked), the first loss within one bf16 spacing of a float32 forward's
+   on the same weights and batch, launches exact a step (rmsnorm 2L + 1,
+   the SSD or wgmma flash route L, fused AdamW once a distinct parameter),
+   ms a step and an AdamW update, peak device memory; in mamba2's second
+   step three parameters' AdamW update (the tied embedding, an in_proj, a
+   norm scale) redone by the plain version on the CPU from copies of their
+   gradients and pre-step state, held to the ``fused_adam`` tier (bitwise
+   printed); ``train`` on the dense, ssm and audio smoke configs (float32)
+   on the card and on the CPU from the same weights, 3 steps, losses
+   within 1e-5 relative, parameters within the bf16 twins' bound; and
+   ``CheckpointManager`` on the card: a save without blocking while
+   training goes on in place, restored into a fresh tree bit for bit, two
+   steps from it against two from the live state;
+13. a JSON line with every kernel's numbers (each record's ``shape`` names
+   the inputs its times were taken on; rmsnorm's ``launch_cost``: the
+   kernel and ``F.rms_norm`` at [1500, 512], [1024, 2560] and [4, 4096]
+   bf16 by events, by the profiler's device time a launch and by the
+   host's time a call), one with every recovery's, one
    with every scenario's, one with every fuzz run's, one with the serving
-   phase's, one with each phase's wall seconds and, of them, the ring
-   snapshot checks' (``PhaseClock``), then the result line.
+   phase's, one with the launcher's, one with each phase's wall seconds
+   and, of them, the ring snapshot checks' (``PhaseClock``), then the
+   result line.
 """
 from __future__ import annotations
 
@@ -253,6 +278,7 @@ import importlib.util
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -289,7 +315,11 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
     uses_sm90_f32 as ssd_uses_sm90_f32)
 from repro_torch.kernels import threefry  # noqa: E402
 from repro_torch.kernels.threefry import threefry_dropout_cuda  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.data.pipeline import (GlobalBatchSampler,  # noqa: E402
+                                       make_batch)
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import encdec as E  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.config import (ATTN, ATTN_MOE, MAMBA,  # noqa: E402
@@ -298,6 +328,7 @@ from repro_torch.models import registry as R  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.layers import RngCtx  # noqa: E402
 from repro_torch.models.registry import ServingHooks, tiny_config  # noqa: E402
+from repro_torch.optim import adam as adam_mod  # noqa: E402
 from repro_torch.optim.adam import AdamConfig, adam_update_flat_np  # noqa: E402
 from repro_torch.scenarios import (SCENARIOS, ClusterScenarioRunner,  # noqa: E402
                                    ClusterWorkload, Scenario, get_scenario,
@@ -308,6 +339,7 @@ from repro_torch.scenarios.fuzz import default_chaos_checkers  # noqa: E402
 from repro_torch.serving import (SLO, DropPolicy, Request,  # noqa: E402
                                  SamplerConfig, ServingEngine)
 from repro_torch.serving.kvcache import tree_nbytes  # noqa: E402
+from repro_torch.tree import at, leaves_with_paths, map_params  # noqa: E402
 from repro_torch.weights import params_to_numpy  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -473,6 +505,9 @@ DENSE_LAUNCHES = {"rmsnorm": 40, "flash_attention": 0, "fused_adam": 4,
 # MLP), each launched forward and backward: 2 layers x 2 ops x 2 x 4 items
 # x 2 steps = 64
 DENSE_DROPOUT_LAUNCHES = {**DENSE_LAUNCHES, "threefry_dropout": 64}
+# the dropout path takes one step (cut from 2 for phase 12's time): half
+DENSE_DROPOUT_STEP_LAUNCHES = {k: v // 2
+                               for k, v in DENSE_DROPOUT_LAUNCHES.items()}
 # the dense path without dropout takes one step (cut from 2 for phase 11's
 # time): half of DENSE_LAUNCHES
 DENSE_STEP_LAUNCHES = {k: v // 2 for k, v in DENSE_LAUNCHES.items()}
@@ -927,6 +962,61 @@ def kernel_rmsnorm(gen) -> dict:
     return rec
 
 
+# the rmsnorm kernel against F.rms_norm where it lost by events (run 82:
+# whisper-base's encoder norm [1500, 512]), at the launcher's mamba2 norm
+# [1024, 2560] (seq 512 x batch 2) and at a decode's [4, 4096], bf16
+RMSNORM_COST_SHAPES = ((1500, 512), (1024, 2560), (4, 4096))
+
+
+def host_call_us(fn, iters: int) -> float:
+    """Host microseconds a call of ``fn`` (the enqueue: no synchronize
+    inside the timed loop)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
+def rmsnorm_launch_cost(gen) -> dict:
+    """At each of ``RMSNORM_COST_SHAPES``: the kernel's wrapper with the
+    scale in float32 (the models' norms: no cast) and in bf16 (the wrapper
+    casts it to float32 first, a second launch), and ``F.rms_norm``, each
+    three ways: CUDA events (medians of 5 interleaved rounds of 50 calls;
+    host-paced where a call's host time exceeds its device time), the
+    profiler's device microseconds a launch by kernel, and the host's
+    microseconds a call.  No kernel changes."""
+    eps, out = 1e-5, {}
+    for rows, d in RMSNORM_COST_SHAPES:
+        x = torch.randn(rows, d, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        s32 = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        s16 = s32.to(torch.bfloat16)
+        fns = {"kernel": lambda: rmsnorm_cuda(x, s32, eps),
+               "kernel, bf16 scale": lambda: rmsnorm_cuda(x, s16, eps),
+               "F.rms_norm": lambda: F.rms_norm(x, (d,), s16, eps)}
+        events = interleaved_medians(fns, 5, 50)
+        device = {k: device_us_by_kernel(fn, 50) for k, fn in fns.items()}
+        host = {k: host_call_us(fn, 200) for k, fn in fns.items()}
+        b, by = bound(2 * rows * d * 2 + 4 * d, 4 * rows * d, torch.bfloat16)
+        key = f"[{rows}, {d}]"
+        out[key] = dict(events_ms=events, device_us_by_kernel=device,
+                        device_us_a_call={k: sum(v.values())
+                                          for k, v in device.items()},
+                        host_us_a_call=host, bound_ms=b, bound_by=by)
+        rounded = {k: {n: round(u, 2) for n, u in v.items()}
+                   for k, v in device.items()}
+        log(f"rmsnorm launch cost bf16 {key}: events ms "
+            f"{ {k: round(v, 5) for k, v in events.items()} }; device us "
+            f"by kernel {rounded}; host us a call "
+            f"{ {k: round(v, 2) for k, v in host.items()} }; bound "
+            f"{b:.5f} ms ({by})")
+    return out
+
+
 def kernel_flash(gen) -> dict:
     """Flash attention at codeqwen's widths against the plain version under
     the unchanged tiers, on all four routes: float32 on the 3xTF32
@@ -1127,7 +1217,8 @@ def kernel_flash(gen) -> dict:
 # tokens, and the 1024 of phase 11's served prefills; whisper-base's
 # encoder over its 1500 frames (bidirectional, head_dim 64, a ragged last
 # tile: 1500 = 11 x 128 + 92) and internvl2-76b's prefill of 256 prefix
-# embeddings and 1024 tokens
+# embeddings and 1024 tokens; codeqwen1.5-7b's training step in phase 12,
+# two sequences of 1024 (the sixth entry: the batch, else 1)
 FLASH_MODEL_SHAPES = {"llama4_scout": (1024, 40, 8, 128, True),
                       "nemotron_4_15b": (4096, 48, 8, 128, True),
                       "deepseek_67b": (4096, 64, 8, 128, True),
@@ -1136,7 +1227,8 @@ FLASH_MODEL_SHAPES = {"llama4_scout": (1024, 40, 8, 128, True),
                       "deepseek_67b_s1024": (1024, 64, 8, 128, True),
                       "llama3_405b_s1024": (1024, 128, 8, 128, True),
                       "whisper_base_encoder": (1500, 8, 8, 64, False),
-                      "internvl2_76b": (1280, 64, 8, 128, True)}
+                      "internvl2_76b": (1280, 64, 8, 128, True),
+                      "codeqwen1p5_7b_train": (1024, 32, 32, 128, True, 2)}
 
 
 def flash_model_shape(gen, model: str) -> dict:
@@ -1146,7 +1238,8 @@ def flash_model_shape(gen, model: str) -> dict:
     tier, timed beside ``F.scaled_dot_product_attention`` (``enable_gqa``,
     ``is_causal`` to match) in 5 interleaved rounds of 10.  Returns its
     record."""
-    (S, H, Hkv, d, causal), B = FLASH_MODEL_SHAPES[model], 1
+    S, H, Hkv, d, causal, *batch = FLASH_MODEL_SHAPES[model]
+    B = batch[0] if batch else 1
     q = torch.randn(B, S, H, d, generator=gen, device="cuda").bfloat16()
     k, v = (torch.randn(B, S, Hkv, d, generator=gen, device="cuda")
             .bfloat16() for _ in "kv")
@@ -1160,7 +1253,8 @@ def flash_model_shape(gen, model: str) -> dict:
     ok, err = within(o, ref.gqa_attention_reference(q, k, v, causal=causal),
                      tier)
     mask = "causal" if causal else "bidirectional"
-    name = f"flash sm90 bf16 S={S} H={H} Hkv={Hkv} hd={d} {mask} ({model})"
+    name = f"flash sm90 bf16 B={B} S={S} H={H} Hkv={Hkv} hd={d} {mask} " \
+        f"({model})"
     log(f"{name}: max_abs_err {err:.3e} tier flash_attention_bf16 ok={ok}")
     check(ok, f"{name} outside flash_attention_bf16")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1743,6 +1837,9 @@ SERVE_NORM_WIDTHS = ((6144, 6144), (7168, 7168), (8192, 8192),
 # frames, a decoder prefill's over a 128-token prompt, and a decode step's
 # over 4 slots
 WHISPER_NORM_ROWS = (1500, 128, 4)
+# phase 12's rmsnorm shapes (rows, d): mamba2-2.7b's block norm and gated
+# out_norm at seq 512 x batch 2, codeqwen1.5-7b's norms at seq 1024 x 2
+LAUNCHER_NORM_SHAPES = ((1024, 2560), (1024, 5120), (2048, 4096))
 
 
 def kernel_path_shapes(gen) -> dict:
@@ -1759,8 +1856,12 @@ def kernel_path_shapes(gen) -> dict:
     it, a slice of wkv_a's wider output; whisper-base's 512 on
     ``WHISPER_NORM_ROWS``.  Each against its plain version under the tier
     of phase 3; whisper-base's encoder norm [1500, 512] also timed beside
-    ``F.rms_norm`` and the plain version.  Returns, by kernel, the
-    records' max_abs_err entries and that timing."""
+    ``F.rms_norm`` and the plain version.  Phase 12's launcher in bf16:
+    rmsnorm on 1024 rows of mamba2's 2560 and 5120 (seq 512 x batch 2)
+    and on 2048 rows of codeqwen's 4096 (seq 1024 x batch 2), and the
+    tensor-core SSD scan at [2, 512, 80, 64], n 128, chunk 256 (two chunks
+    a sequence).  Returns, by kernel, the records' max_abs_err entries and
+    that timing."""
     errs = {"rmsnorm": {}, "ssd_scan_sm90": {}}
 
     def held(x, tier, key):
@@ -1794,6 +1895,9 @@ def kernel_path_shapes(gen) -> dict:
     for rows in WHISPER_NORM_ROWS:
         held(torch.randn(rows, 512, generator=gen, device="cuda").bfloat16(),
              "rmsnorm_bf16", "serving_shapes_max_abs_err")
+    for rows, d in LAUNCHER_NORM_SHAPES:
+        held(torch.randn(rows, d, generator=gen, device="cuda").bfloat16(),
+             "rmsnorm_bf16", "launcher_shapes_max_abs_err")
     x = torch.randn(WHISPER_NORM_ROWS[0], 512, generator=gen,
                     device="cuda").bfloat16()
     scale = 1 + 0.1 * torch.randn(512, generator=gen, device="cuda")
@@ -1811,24 +1915,29 @@ def kernel_path_shapes(gen) -> dict:
         f"norm): kernel {med['kernel']:.5f} ms, F.rms_norm "
         f"{med['library']:.5f} ms (medians of 5 interleaved rounds of 50), "
         f"bound {b:.5f} ms ({by})")
-    b, s, h, p, n, chunk = 2, 4096, 80, 64, 128, 256
-    xBC = F.silu(torch.randn(b, s, h * p + 2 * n, generator=gen,
-                             device="cuda")).to(torch.bfloat16)
-    x = xBC[..., :h * p].reshape(b, s, h, p)
-    B = xBC[..., h * p:h * p + n].reshape(b, s, 1, n)
-    C = xBC[..., h * p + n:].reshape(b, s, 1, n)
-    dt = F.softplus(torch.randn(b, s, h, generator=gen, device="cuda"))
-    A = -torch.linspace(1.0, 16.0, h, device="cuda")
-    check(ssd_uses_sm90(torch.bfloat16, p, n, chunk),
-          "the batch-2 SSD scan must take the tensor-core route")
-    Bh, Ch = (t.repeat_interleave(h, dim=2) for t in (B, C))
-    ok, err = within(ssd_scan_cuda(x, dt, A, B, C, chunk),
-                     ref.ssd_reference(x, dt, A, Bh, Ch)[0],
-                     ops.TOLERANCE_TIERS["ssd_scan_bf16"])
-    log(f"ssd_scan bf16 [2, 4096, 80, 64] on the tensor cores: max_abs_err "
-        f"{err:.3e} ok={ok}")
-    check(ok, "ssd_scan bf16 at batch 2 outside ssd_scan_bf16")
-    errs["ssd_scan_sm90"]["recovery_shapes_max_abs_err"] = err
+    b, h, p, n, chunk = 2, 80, 64, 128, 256
+    for s, key in ((4096, "recovery_shapes_max_abs_err"),
+                   (512, "launcher_shapes_max_abs_err")):
+        xBC = F.silu(torch.randn(b, s, h * p + 2 * n, generator=gen,
+                                 device="cuda")).to(torch.bfloat16)
+        x = xBC[..., :h * p].reshape(b, s, h, p)
+        B = xBC[..., h * p:h * p + n].reshape(b, s, 1, n)
+        C = xBC[..., h * p + n:].reshape(b, s, 1, n)
+        dt = F.softplus(torch.randn(b, s, h, generator=gen, device="cuda"))
+        A = -torch.linspace(1.0, 16.0, h, device="cuda")
+        check(ssd_uses_sm90(torch.bfloat16, p, n, chunk),
+              "the batch-2 SSD scan must take the tensor-core route")
+        before = _build.LAUNCHES["ssd_scan_sm90"]
+        y = ssd_scan_cuda(x, dt, A, B, C, chunk)
+        check(_build.LAUNCHES["ssd_scan_sm90"] == before + 1,
+              "ssd_scan_cuda did not launch ssd_scan_sm90 once")
+        Bh, Ch = (t.repeat_interleave(h, dim=2) for t in (B, C))
+        ok, err = within(y, ref.ssd_reference(x, dt, A, Bh, Ch)[0],
+                         ops.TOLERANCE_TIERS["ssd_scan_bf16"])
+        what = f"ssd_scan bf16 [{b}, {s}, {h}, {p}] on the tensor cores"
+        log(f"{what}: max_abs_err {err:.3e} ok={ok}")
+        check(ok, f"{what} outside ssd_scan_bf16")
+        errs["ssd_scan_sm90"][key] = err
     return errs
 
 
@@ -1899,21 +2008,12 @@ def phase_tiny_twin(family: str, twin: str = "float32",
 LOSS_TWIN_BATCH, LOSS_TWIN_TOKENS, LOSS_TWIN_FRAMES = 2, 12, 16
 
 
-def tree_map(fn, tree):
-    """``fn`` of every tensor of a parameter tree (dicts, lists, tuples),
-    in the tree's structure."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
 def loss_backward(params, loss_fn, batch) -> tuple:
     """``loss_fn(params, batch)`` forward and backward, every tensor of
     ``params`` requiring its gradient for the call only: (the loss, the
-    gradients in ``_param_leaves`` order, the launches, wall seconds)."""
-    leaves = _param_leaves(params)
+    gradients in ``leaves_with_paths`` order, the launches, wall
+    seconds)."""
+    leaves = [t for _, t in leaves_with_paths(params)]
     for t in leaves:
         t.requires_grad_(True)
     _build.reset_launch_counts()
@@ -1970,7 +2070,7 @@ def phase_loss_twin(family: str) -> dict:
     cfg = tiny_config(family, dropout_rate=0.0)
     name = f"tiny {family} loss twin (float32)"
     cpu = R.init_model(torch.Generator().manual_seed(0), cfg)
-    card = tree_map(lambda t: t.to("cuda"), cpu)
+    card = map_params(lambda t: t.to("cuda"), cpu)
     rng = np.random.default_rng(0)
     B, S = LOSS_TWIN_BATCH, LOSS_TWIN_TOKENS
     tok = rng.integers(0, cfg.vocab_size, size=(B, S))
@@ -3353,7 +3453,7 @@ def phase_serve_twins() -> dict:
     for twin, (family, over) in SERVE_TINY_TWINS.items():
         cfg = tiny_config(family, **SERVE_TINY, **over)
         cpu = R.init_model(torch.Generator().manual_seed(0), cfg)
-        card = tree_map(lambda t: t.to("cuda"), cpu)
+        card = map_params(lambda t: t.to("cuda"), cpu)
         for sname, sampler in SERVE_SAMPLERS.items():
             runs = {}
             for scen, event, policy in (
@@ -3423,7 +3523,7 @@ def phase_serve_twins() -> dict:
 def float32_params(tree):
     """A copy of a parameter tree (dicts, lists, tuples of tensors) in
     float32."""
-    return tree_map(torch.Tensor.float, tree)
+    return map_params(torch.Tensor.float, tree)
 
 
 def logits_vs_forward(params, cfg, run: dict, float32_ref: bool = False,
@@ -3773,7 +3873,7 @@ def phase_serve_full(cfg, plan=SERVE_FULL_RUNS, **kw) -> tuple:
     t0 = time.perf_counter()
     params = R.init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _param_leaves(params))
+    n_params = sum(t.numel() for _, t in leaves_with_paths(params))
     served = SERVE_SERVED_LAYERS.get(name, cfg.num_layers)
     scfg, sparams = (cfg, params) if served == cfg.num_layers else (
         dataclasses.replace(cfg, num_layers=served),
@@ -3927,7 +4027,7 @@ def phase_vlm_prefix(cfg) -> tuple:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = R.init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
-    n_params = sum(t.numel() for t in _param_leaves(params))
+    n_params = sum(t.numel() for _, t in leaves_with_paths(params))
     prefix = torch.randn(1, P, cfg.d_model, device="cuda",
                          generator=torch.Generator(device="cuda")
                          .manual_seed(1)).to(cfg.torch_dtype)
@@ -4022,22 +4122,6 @@ def phase_vlm_prefix(cfg) -> tuple:
                  peak_gb=peak))
 
 
-def _param_leaves(params) -> list:
-    """The distinct tensors of a parameter tree (dicts, lists, tuples), in
-    a fixed order; a tied head, a view of the embedding, counts once."""
-    seen, out, stack = set(), [], [params]
-    while stack:
-        t = stack.pop()
-        if isinstance(t, dict):
-            stack.extend(reversed(list(t.values())))
-        elif isinstance(t, (list, tuple)):
-            stack.extend(reversed(t))
-        elif t.data_ptr() not in seen:
-            seen.add(t.data_ptr())
-            out.append(t)
-    return out
-
-
 def phase_serve() -> tuple:
     """Phase 11: the serving twins, codeqwen1.5-7b at full width and depth
     and mamba2-2.7b at full width (served at ``SERVE_SERVED_LAYERS``' 16
@@ -4107,6 +4191,352 @@ def phase_serve() -> tuple:
     return counts, recs, wall
 
 
+# phase 12: the whole-model launcher (launch/train.py).  (a) mamba2-2.7b at
+# its published size (64 layers) through the launcher's command line; (b)
+# codeqwen1.5-7b at full width cut to 8 layers (a fit cut: its 32 layers
+# need 131 GB of weights, gradients and AdamW state) through train()
+TRAIN_MAMBA = dict(steps=3, seq=512, batch=2)
+TRAIN_DENSE = dict(steps=2, seq=1024, batch=2)
+TRAIN_DENSE_LAYERS = 8
+# (c) the AdamW gate: in the second step of (a), three parameters' update
+# redone by the plain version on the CPU from their copied gradients and
+# pre-step state: the embedding (the tied head's too), a Mamba2 in_proj and
+# a norm scale (float32)
+ADAM_GATE_PATHS = ((0, "embed", "embedding"), (1, 0, "mamba", "in_proj"),
+                   (1, 0, "ln1", "scale"))
+ADAM_GATE_STEP = 1                 # the state's step before that update
+ADAM_TIER = ops.TOLERANCE_TIERS["fused_adam"]
+# (d) the tiny card twins: the dense, ssm and audio smoke configs (float32)
+# through train() on the card and on the CPU from the same weights; the
+# checkpoint on the ssm one (its tied head)
+TRAIN_TWIN_MODULES = (codeqwen1p5_7b, mamba2_2p7b, whisper_base)
+TRAIN_TWIN = dict(steps=3, seq=16, batch=2)
+TRAIN_TWIN_LOSS_RTOL = 1e-5
+TRAIN_CKPT_SAVE_STEP = 1
+
+
+def launcher_launches(cfg, n_params: int, steps: int) -> dict:
+    """The launches of ``steps`` launcher steps: a forward's rmsnorm a norm
+    (ln1, a Mamba2 block's out_norm or an MLP block's ln2, an enc-dec
+    decoder block's lnx, the final norm and the encoder's enc_norm) and
+    its route's flash or SSD launch a mixer (an enc-dec config's frames
+    are as many as its tokens, so its cross-attention launches flash too);
+    one fused AdamW a distinct parameter; the backward launches nothing (it
+    differentiates the plain versions)."""
+    want = {k: 0 for k in _build.LAUNCHES}
+    if cfg.is_encdec:
+        n_enc = cfg.encoder_layers or cfg.num_layers
+        n_dec = cfg.decoder_layers or cfg.num_layers
+        want["rmsnorm"] = 2 * n_enc + 1 + 3 * n_dec + 1
+        want[serve_route(cfg, ATTN)] = n_enc + 2 * n_dec
+    else:
+        for blk in R.flat_layer_types(cfg):
+            want["rmsnorm"] += 2
+            want[serve_route(cfg, blk)] += 1
+        want["rmsnorm"] += 1
+    want["fused_adam"] = n_params
+    return {k: v * steps for k, v in want.items()}
+
+
+def adam_gate(pre: dict, params, state: dict, cfg: AdamConfig) -> dict:
+    """Each gated parameter's update redone on the CPU by the plain version
+    (``ops.fused_adam_`` on CPU tensors) from its copied bf16 or float32
+    gradient and pre-step state, held to the ``fused_adam`` tier against
+    the card's; whether bitwise (both sides take the bias corrections of
+    ``ops.adam_scalars``)."""
+    out = {}
+    for path, c in pre.items():
+        g = c["g"].reshape(-1).float().contiguous()
+        new = {k: c[k].reshape(-1).clone() for k in ("master", "mu", "nu")}
+        ops.fused_adam_(g, new["master"], new["mu"], new["nu"],
+                        step=state["step"], b1=cfg.b1, b2=cfg.b2,
+                        eps=cfg.eps, lr=cfg.lr,
+                        weight_decay=cfg.weight_decay)
+        card = {k: v.reshape(-1).cpu() for k, v in
+                at(state["leaves"], path).items()}
+        card["p"] = at(params, path).detach().reshape(-1).cpu()
+        new["p"] = new["master"].to(card["p"].dtype)
+        rec = {}
+        for k in ("master", "mu", "nu", "p"):
+            ok, err = within(card[k], new[k], ADAM_TIER)
+            check(ok, f"AdamW gate {'/'.join(map(str, path))} {k}: max "
+                      f"|diff| {err:.3e} beyond the fused_adam tier")
+            rec[k] = dict(max_abs_err=err,
+                          bitwise=bool(torch.equal(card[k], new[k])))
+        out["/".join(map(str, path))] = dict(elements=g.numel(), **rec)
+    return out
+
+
+@contextlib.contextmanager
+def launcher_probe(gate_paths: tuple = ()):
+    """Times each launcher step and each AdamW update (between
+    ``torch.cuda.synchronize`` calls) and counts each step's launches, by
+    wrapping ``launch.train.train_step`` and ``optim.adam.adam_update``;
+    records the optimizer state's bytes and device, and runs the AdamW gate
+    on ``gate_paths`` at the step whose state is at ``ADAM_GATE_STEP``."""
+    rec = dict(step_ms=[], adam_ms=[], step_launches=[], gate=None,
+               gate_s=0.0)
+    inner_step, inner_adam = launch_train.train_step, adam_mod.adam_update
+
+    def step(*a, **k):
+        before, gate_s = dict(_build.LAUNCHES), rec["gate_s"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner_step(*a, **k)
+        torch.cuda.synchronize()
+        # the AdamW gate's host copies and CPU update are not the step's
+        rec["step_ms"].append((time.perf_counter() - t0
+                               - (rec["gate_s"] - gate_s)) * 1e3)
+        rec["step_launches"].append(
+            {k: v - before[k] for k, v in _build.LAUNCHES.items()})
+        return out
+
+    def adam(params, grads, state, cfg):
+        host = lambda t: t.detach().to("cpu", copy=True)     # noqa: E731
+        t0 = time.perf_counter()
+        pre = {path: dict(p=host(at(params, path)), g=host(at(grads, path)),
+                          **{c: host(v) for c, v in
+                             at(state["leaves"], path).items()})
+               for path in gate_paths} \
+            if gate_paths and state["step"] == ADAM_GATE_STEP else None
+        rec["gate_s"] += time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, new = inner_adam(params, grads, state, cfg)
+        torch.cuda.synchronize()
+        rec["adam_ms"].append((time.perf_counter() - t0) * 1e3)
+        leaves = [t for _, t in leaves_with_paths(new["leaves"])]
+        rec["state_bytes"] = sum(t.numel() * t.element_size() for t in leaves)
+        rec["state_on_card"] = all(t.is_cuda for t in leaves)
+        distinct = [t for _, t in leaves_with_paths(params)]
+        rec["params"] = sum(t.numel() for t in distinct)
+        rec["n_leaves"] = len(distinct)
+        if pre is not None:
+            t0 = time.perf_counter()
+            rec["gate"] = adam_gate(pre, params, new, cfg)
+            rec["gate_s"] += time.perf_counter() - t0
+        return params, new
+
+    launch_train.train_step, adam_mod.adam_update = step, adam
+    try:
+        yield rec
+    finally:
+        launch_train.train_step, adam_mod.adam_update = inner_step, inner_adam
+
+
+def float32_first_loss(cfg, seq: int, batch: int) -> float:
+    """The launcher's first loss recomputed in float32: the weights
+    ``launch.train.train`` draws (``registry.init_model`` from seed 0 on
+    the card), cast to float32, on step 0's batch, forward only."""
+    params = R.init_model(torch.Generator("cuda").manual_seed(0), cfg)
+    p32 = float32_params(params)
+    del params
+    b = make_batch(GlobalBatchSampler(batch).sample_ids(0), seq,
+                   cfg.vocab_size, device="cuda")
+    b.update(launch_train.extra_inputs(cfg, 0, batch, seq, "cuda"))
+    with torch.no_grad():
+        loss = float(R.make_train_loss(
+            dataclasses.replace(cfg, dtype="float32"))(p32, b))
+    del p32
+    torch.cuda.empty_cache()
+    return loss
+
+
+def phase_launcher_full(name: str, cfg, run: dict, fn) -> tuple:
+    """One launcher run at full width on the card: the first loss within
+    one bf16 spacing (2**-7 relative) of the float32 loss on the same
+    weights and batch, every loss finite, launches exact a step, the AdamW
+    state on the card at 12 bytes a parameter; ms a step and an AdamW
+    update, peak device memory.  ``fn()`` trains ``cfg`` for ``run``'s
+    steps, seq and batch and returns the losses.  Returns (launches,
+    record)."""
+    seq, batch, steps = run["seq"], run["batch"], run["steps"]
+    loss32 = float32_first_loss(cfg, seq, batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with launcher_probe(ADAM_GATE_PATHS if cfg.family == "ssm" else ()) \
+            as probe:
+        losses = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n = probe["params"]
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"{name}: losses {losses}")
+    check(abs(losses[0] - loss32) <= BF16_LOSS_RTOL * abs(loss32),
+          f"{name}: first loss {losses[0]!r} vs the float32 forward's "
+          f"{loss32!r}")
+    check(probe["state_on_card"] and probe["state_bytes"] == 12 * n,
+          f"{name}: AdamW state {probe['state_bytes']} bytes, on the card "
+          f"{probe['state_on_card']}, want {12 * n}")
+    want = launcher_launches(cfg, probe["n_leaves"], 1)
+    for i, c in enumerate(probe["step_launches"]):
+        check(c == want, f"{name} step {i}: launches {c} != {want}")
+    check(counts == {k: v * steps for k, v in want.items()},
+          f"{name}: launches {counts}")
+    if cfg.family == "ssm":
+        check(probe["gate"] is not None, f"{name}: the AdamW gate never ran")
+    rec = dict(params=n, layers=cfg.num_layers, seq=seq, batch=batch,
+               losses=losses, float32_first_loss=loss32,
+               step_ms=probe["step_ms"], adam_ms=probe["adam_ms"],
+               wall_s=wall, adam_gate_s=probe["gate_s"], peak_mem_GB=peak,
+               state_bytes=probe["state_bytes"],
+               launches_per_step={k: v for k, v in want.items() if v},
+               adam_gate=probe["gate"])
+    log(f"{name}: {n} params ({cfg.param_count()} by the config's count, "
+        f"which leaves out the norms), {cfg.num_layers} layers, seq {seq} x "
+        f"batch {batch}: losses {losses} (float32 first loss {loss32:.6f}); "
+        f"ms a step {[round(x, 3) for x in probe['step_ms']]}, an AdamW "
+        f"update {[round(x, 3) for x in probe['adam_ms']]}; peak_mem_GB "
+        f"{peak:.2f}; AdamW state {probe['state_bytes']} bytes on the card; "
+        f"launches a step {rec['launches_per_step']}; {wall:.1f} s")
+    if probe["gate"]:
+        log(f"{name}: AdamW gate (step {ADAM_GATE_STEP + 1}, card vs the "
+            f"plain version on the CPU, {probe['gate_s']:.1f} s, not in the "
+            f"step's time): {probe['gate']}")
+    return counts, rec
+
+
+def launcher_steps(params, opt, cfg, first: int, n: int) -> tuple:
+    """The launcher's steps ``first .. first + n - 1`` of ``cfg`` on the
+    card at ``TRAIN_TWIN``'s seq and batch (``launch.train.train_steps``);
+    returns (losses, opt)."""
+    return launch_train.train_steps(
+        cfg, params, opt, first, n, seq=TRAIN_TWIN["seq"],
+        batch=TRAIN_TWIN["batch"], device="cuda",
+        log=lambda m: None)
+
+
+def trees_within(a, b, rtol: float, atol: float) -> tuple:
+    """Whether every tensor of tree ``a`` is within ``rtol`` /
+    ``atol`` of ``b``'s (on the CPU), and the largest difference."""
+    ok, worst = True, 0.0
+    for (_, x), (_, y) in zip(leaves_with_paths(a), leaves_with_paths(b)):
+        x = x.detach().cpu()
+        ok = ok and torch.allclose(x, y, rtol=rtol, atol=atol)
+        worst = max(worst, float((x - y).abs().max()))
+    return ok, worst
+
+
+def phase_launcher_twins(tmp: Path) -> tuple:
+    """(d): ``launch.train.train`` on the tiny dense, ssm and audio smoke
+    configs (float32) on the card and on the CPU from the same weights for
+    3 steps: losses within 1e-5 relative, parameters and AdamW state within
+    the bf16 twins' bound (2**-7 relative on top of the step-sign allowance
+    ``KCC.PARAM_ATOL0 + 2 lr step``), launches exact.  Then the checkpoint
+    on the card (the ssm config, its head tied): a save without blocking at
+    step 1 while training goes on in place, restored into a fresh tree bit
+    for bit, 2 steps from it and from the live state within the twins'
+    bound (and whether bitwise).  Returns (launches by path, records)."""
+    counts, recs = {}, {}
+    for mod in TRAIN_TWIN_MODULES:
+        cfg = mod.smoke_config()
+        cpu = R.init_model(torch.Generator().manual_seed(0), cfg)
+        card = map_params(lambda t: t.to("cuda"), cpu)
+        out = {}
+        for dev, params in (("cuda", card), ("cpu", cpu)):
+            _build.reset_launch_counts()
+            out[dev] = launch_train.train(
+                cfg, device=dev, params=params, log=lambda m: None,
+                **TRAIN_TWIN)
+            if dev == "cuda":
+                got = dict(_build.LAUNCHES)
+        name = f"launcher twin {cfg.name} (float32)"
+        a, b = out["cuda"], out["cpu"]
+        check(all(abs(x - y) <= TRAIN_TWIN_LOSS_RTOL * abs(y)
+                  for x, y in zip(a, b)),
+              f"{name}: losses {a} (card) vs {b} (cpu)")
+        atol = KCC.PARAM_ATOL0 + 2.0 * 1e-3 * TRAIN_TWIN["steps"]
+        ok, worst = trees_within(card, cpu, BF16_PARAM_RTOL, atol)
+        check(ok, f"{name}: parameters beyond the twins' bound (max |diff| "
+                  f"{worst:.3e})")
+        want = launcher_launches(cfg, len(leaves_with_paths(cpu)),
+                                 TRAIN_TWIN["steps"])
+        check(got == want, f"{name}: launches {got} != {want}")
+        log(f"{name}: losses card {a} cpu {b}; parameters max |diff| "
+            f"{worst:.3e}; launches {({k: v for k, v in got.items() if v})}")
+        counts[name] = got
+        recs[cfg.name] = dict(losses_card=a, losses_cpu=b,
+                              param_max_abs_diff=worst)
+    # the checkpoint on the card
+    cfg = mamba2_2p7b.smoke_config()
+    params = map_params(lambda t: t.to("cuda"),
+                      R.init_model(torch.Generator().manual_seed(0), cfg))
+    opt = adam_mod.init_opt_state(params, launch_train.ADAM)
+    _build.reset_launch_counts()
+    _, opt = launcher_steps(params, opt, cfg, 0, TRAIN_CKPT_SAVE_STEP + 1)
+    ck = CheckpointManager(tmp / "ckpt")
+    saved = [t.clone() for _, t in leaves_with_paths((params, opt["leaves"]))]
+    t0 = time.perf_counter()
+    ck.save(TRAIN_CKPT_SAVE_STEP, params, opt, blocking=False)
+    save_s = time.perf_counter() - t0
+    live, opt = launcher_steps(params, opt, cfg, TRAIN_CKPT_SAVE_STEP + 1, 2)
+    ck.wait()
+    step, flat, _ = ck.restore()
+    fresh = map_params(lambda t: t.to("cuda"),
+                     R.init_model(torch.Generator().manual_seed(1), cfg))
+    fresh_opt = adam_mod.init_opt_state(fresh, launch_train.ADAM)
+    fresh = ck.restore_into(fresh, flat["params"])
+    fresh_opt = ck.restore_into(fresh_opt, flat["opt"])
+    restored = [t for _, t in leaves_with_paths((fresh, fresh_opt["leaves"]))]
+    check(step == TRAIN_CKPT_SAVE_STEP
+          and fresh_opt["step"] == TRAIN_CKPT_SAVE_STEP + 1
+          and all(t.is_cuda for t in restored)
+          and len(restored) == len(saved)
+          and all(torch.equal(x, y) for x, y in zip(restored, saved)),
+          "checkpoint: the restored tree differs from the state at the save")
+    again, fresh_opt = launcher_steps(fresh, fresh_opt, cfg,
+                                      TRAIN_CKPT_SAVE_STEP + 1, 2)
+    bitwise = again == live and all(
+        torch.equal(x, y) for (_, x), (_, y) in
+        zip(leaves_with_paths((fresh, fresh_opt["leaves"])),
+            leaves_with_paths((params, opt["leaves"]))))
+    check(all(abs(x - y) <= TRAIN_TWIN_LOSS_RTOL * abs(y)
+              for x, y in zip(again, live)),
+          f"checkpoint: losses from the restored state {again} vs the live "
+          f"state's {live}")
+    counts["launcher checkpoint (tiny ssm)"] = dict(_build.LAUNCHES)
+    recs["checkpoint"] = dict(save_call_s=save_s, live_losses=live,
+                              restored_losses=again, bitwise=bitwise,
+                              leaves=len(saved))
+    log(f"launcher checkpoint on the card ({cfg.name}): save without "
+        f"blocking returned in {save_s:.4f} s; {len(saved)} tensors restored "
+        f"bit for bit; losses after the restore {again} vs live {live}; "
+        f"bitwise {bitwise}")
+    return counts, recs
+
+
+def phase_launcher(tmp: Path) -> tuple:
+    """Phase 12: the whole-model training launcher (``launch/train.py``):
+    (a) mamba2-2.7b at its published size through the launcher's command
+    line, with the AdamW gate (c); (b) codeqwen1.5-7b at full width, 8
+    layers; (d) the tiny twins and the checkpoint.  Returns (launches by
+    path, records, wall seconds)."""
+    t0 = time.perf_counter()
+    counts, recs = {}, {}
+    argv = ["--arch", "mamba2_2p7b"] + [
+        x for k, v in TRAIN_MAMBA.items() for x in (f"--{k}", str(v))]
+    dense = dataclasses.replace(codeqwen1p5_7b.config(),
+                                num_layers=TRAIN_DENSE_LAYERS)
+    runs = (("mamba2-2.7b (launcher, 64 layers)", mamba2_2p7b.config(),
+             TRAIN_MAMBA, lambda: launch_train.main(argv)),
+            (f"codeqwen1.5-7b (launcher, {TRAIN_DENSE_LAYERS} layers)", dense,
+             TRAIN_DENSE, lambda: launch_train.train(dense, **TRAIN_DENSE)))
+    for name, cfg, run, fn in runs:
+        counts[name], recs[name] = phase_launcher_full(name, cfg, run, fn)
+        gc.collect()
+        torch.cuda.empty_cache()
+    c, recs["twins"] = phase_launcher_twins(tmp)
+    counts.update(c)
+    wall = time.perf_counter() - t0
+    log(f"phase 12 (launcher): {wall:.1f} s")
+    return counts, recs, wall
+
+
 class PhaseClock:
     """Wall seconds from one ``mark`` to the next and, of them, the ring
     snapshot checks' (``snapshot_matches_device``), logged and kept by
@@ -4133,6 +4563,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     recs = {"rmsnorm": kernel_rmsnorm(gen), **kernel_flash(gen)}
+    recs["rmsnorm"]["launch_cost"] = rmsnorm_launch_cost(gen)
     cfg = codeqwen1p5_7b.config()
     # the larger stage of the dense phase: one layer + the head
     stage = cfg._block_params("attn") + cfg.d_model * cfg.vocab_size \
@@ -4260,10 +4691,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     clock.mark("phase 5 (codeqwen step)")
     # the same model at dropout 0.1, samples' streams addressed by their
-    # global ids, 2 steps
+    # global ids, 1 step (cut from 2 for phase 12's time), profiled
     paths["codeqwen1.5-7b dropout 0.1"] = phase_train(
         dataclasses.replace(cfg, num_layers=2, dropout_rate=DROPOUT_RATE),
-        DENSE_DROPOUT_LAUNCHES, steps=2, profile_step=1,
+        DENSE_DROPOUT_STEP_LAUNCHES, steps=1, profile_step=0,
         rng_mode="reshard")[0]
     gc.collect()
     torch.cuda.empty_cache()
@@ -4295,7 +4726,17 @@ def main() -> None:
     clock.mark("phase 10 (fuzzer)")
     serve_paths, serving, serve_s = phase_serve()
     paths.update(serve_paths)
+    gc.collect()
+    torch.cuda.empty_cache()
     clock.mark("phase 11 (serving)")
+    tmp = _build.BUILD_ROOT.parent / "chip_smoke_launcher"
+    shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        launcher_paths, launcher, launcher_s = phase_launcher(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    paths.update(launcher_paths)
+    clock.mark("phase 12 (launcher)")
     kernels = [dict(name=name, route="cuda", source=SOURCES[name][0],
                     replaces=SOURCES[name][1],
                     launches=sum(p[name] for p in paths.values()),
@@ -4342,6 +4783,7 @@ def main() -> None:
     log(json.dumps({"scenarios": scenarios, "phase_s": scenario_s}))
     log(json.dumps({"fuzz": fuzz_runs, "phase_s": fuzz_s}))
     log(json.dumps({"serving": serving, "phase_s": serve_s}))
+    log(json.dumps({"launcher": launcher, "phase_s": launcher_s}))
     log(json.dumps({"phases": clock.rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

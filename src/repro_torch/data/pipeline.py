@@ -4,13 +4,16 @@ A copy of ``repro.data.pipeline``'s sampler and token hash: **any rank can
 materialize any sample by its global id**, so micro-batch resizing re-slices
 the *same* global batch instead of changing it.  Tokens are a keyed hash of
 (sample_id, position), a stand-in for an indexed tokenized corpus.
+:func:`make_batch` puts a batch of them on a device for the whole-model
+launcher (``launch/train.py``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,3 +59,19 @@ def materialize_samples(sample_ids: np.ndarray, seq_len: int,
     x ^= x >> np.uint64(27); x *= np.uint64(0x94d049bb133111eb)
     x ^= x >> np.uint64(31)
     return (x % np.uint64(vocab_size)).astype(np.int32)
+
+
+def make_batch(sample_ids: np.ndarray, seq_len: int, vocab_size: int,
+               seed: int = 0, device=None) -> Dict[str, torch.Tensor]:
+    """The batch of ``sample_ids`` on ``device`` (None: the card; raises
+    without one): ``tokens`` and ``labels`` [n, seq_len] int64, the
+    reference's int32 values as the index dtype torch's embedding lookup
+    and gathers take; ``sample_ids`` [n] int32, as the reference's (the
+    dtype ``RngCtx.sample_ids`` addresses dropout with)."""
+    from repro_torch.core.cluster import resolve_device
+    dev = resolve_device(device)
+    toks = torch.from_numpy(materialize_samples(
+        sample_ids, seq_len, vocab_size, seed).astype(np.int64)).to(dev)
+    return {"tokens": toks, "labels": toks,
+            "sample_ids": torch.from_numpy(
+                np.asarray(sample_ids, dtype=np.int32)).to(dev)}

@@ -61,9 +61,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.dryrun:
-        raise NotImplementedError(
-            "--dryrun lowers the full config on a production mesh; the dry "
-            "run is not ported yet (ROADMAP queue 1 item 9)")
+        from repro_torch.launch.train import DRYRUN_MESSAGE
+        raise NotImplementedError(DRYRUN_MESSAGE)
     return run_smoke(args.arch, args)
 
 

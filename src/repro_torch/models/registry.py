@@ -66,15 +66,14 @@ def init_model(gen: torch.Generator, cfg: ModelConfig):
     """The whole model from ``gen`` (on its device): an enc-dec config's
     tree (``encdec.init_encdec_params``), else ``(stem, layers, head)``.
     As the reference's whole-model tree, a config with ``tie_embeddings``
-    has no head matrix of its own: the head is a view of the embedding,
-    transposed."""
+    has no head matrix: its head holds the final norm alone, and the
+    logits read the embedding, transposed (``transformer.forward``)."""
     if cfg.is_encdec:
         return E.init_encdec_params(gen, cfg)
     stem = init_stem(gen, cfg)
     layers = [init_layer(gen, cfg, i) for i in range(cfg.num_layers)]
     if cfg.tie_embeddings:
-        head = {"final_norm": L.init_rmsnorm(cfg.d_model, gen.device),
-                "head": {"w": stem["embed"]["embedding"].T}}
+        head = {"final_norm": L.init_rmsnorm(cfg.d_model, gen.device)}
     else:
         head = init_head(gen, cfg)
     return stem, layers, head

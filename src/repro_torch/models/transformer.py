@@ -157,7 +157,11 @@ def forward(params, cfg: ModelConfig, tokens, *, rng_ctx=None,
     if last_only:
         x = x[:, -1:]
     x = L.rmsnorm(head["final_norm"], x, cfg.norm_eps)
-    return L.lm_logits(head["head"], x), caches, aux_total
+    # a tied config has no head matrix: the logits read the embedding,
+    # transposed, as the reference's
+    w = stem["embed"]["embedding"].T if cfg.tie_embeddings \
+        else head["head"]["w"]
+    return L.lm_logits({"w": w}, x), caches, aux_total
 
 
 def prefill(params, cfg: ModelConfig, tokens, caches, prefix_embeds=None):

@@ -1,4 +1,22 @@
-"""Flat-vector AdamW for the VirtualCluster's ZeRO-1 stage buffers.
+"""Mixed-precision AdamW: the tree-level update of the whole-model
+launcher (``launch/train.py``) and the flat-vector one of the
+VirtualCluster's ZeRO-1 stage buffers.
+
+:func:`init_opt_state` / :func:`adam_update` mirror the reference's
+``repro.optim.adam``: state ``{"leaves": <one {mu, nu[, master]} a
+parameter, float32, the parameter's shape>, "step": int}``, the leaves
+in the parameter tree's structure (a tied config's tree has no head
+matrix, ``registry.init_model``, so its embedding has one state, as in
+the reference).  Parameters are updated in place (``p.copy_(master)``).
+Each parameter goes through ``ops.fused_adam_`` once a step:
+the fused-AdamW kernel for CUDA tensors, its plain version for CPU
+tensors.  The bias corrections are the kernel's (``ops.adam_scalars``:
+``1 - b ** step`` in double, rounded once to float32, as
+``adam_update_flat_np``), where the reference's tree update takes
+``1 - b ** float32(step)`` in float32: the two differ by an ulp of the
+correction at most, so the port's tree update is within the
+``fused_adam`` tier of the reference's, and the card's update is bitwise
+the plain version's on the same inputs.
 
 ``adam_update_flat_np`` is a copy of the reference's host-side numpy update
 (the oracle the ring snapshot replays on the host).  ``adam_update_flat_``
@@ -14,6 +32,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from repro_torch.tree import at, leaves_with_paths, map_params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,3 +76,38 @@ def adam_update_flat_(grad: torch.Tensor, state: Dict[str, torch.Tensor],
     ops.fused_adam_(grad, state["master"], state["mu"], state["nu"],
                     step=step, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps, lr=cfg.lr,
                     weight_decay=cfg.weight_decay)
+
+
+def init_opt_state(params, cfg: AdamConfig) -> dict:
+    """Zero mu and nu and, under ``cfg.master_weights``, a float32 master
+    copy of each parameter, on its device."""
+    def leaf(p):
+        st = {"mu": torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+              "nu": torch.zeros(p.shape, dtype=torch.float32, device=p.device)}
+        if cfg.master_weights:
+            st["master"] = p.detach().to(torch.float32, copy=True)
+        return st
+    return {"leaves": map_params(leaf, params), "step": 0}
+
+
+def adam_update(params, grads, state, cfg: AdamConfig):
+    """One AdamW step of every parameter, in place; returns (params, the
+    state at ``step + 1``).  ``grads`` has the parameters' structure; a
+    ``None`` gradient (a parameter no loss term reads) is zero, as the
+    reference's gradient of such a leaf is.  Without a master copy the kernel updates a float32
+    copy of the parameter."""
+    from repro_torch.kernels import ops
+    step = state["step"] + 1
+    with torch.no_grad():
+        for path, p in leaves_with_paths(params):
+            g, st = at(grads, path), at(state["leaves"], path)
+            g = torch.zeros(p.numel(), dtype=torch.float32, device=p.device) \
+                if g is None else g.detach().reshape(-1).to(torch.float32) \
+                .contiguous()
+            master = st["master"].view(-1) if "master" in st else \
+                p.detach().reshape(-1).to(torch.float32, copy=True)
+            ops.fused_adam_(g, master, st["mu"].view(-1), st["nu"].view(-1),
+                            step=step, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+                            lr=cfg.lr, weight_decay=cfg.weight_decay)
+            p.copy_(master.view(p.shape))
+    return params, {"leaves": state["leaves"], "step": step}

@@ -59,7 +59,7 @@ def params_from_stacked(cfg, params, device):
     position, each leaf with a leading ``repeats`` axis), ``final_norm``
     and, unless ``cfg.tie_embeddings``, ``head``.  Layer ``r * len(pat) +
     i`` of a segment is repeat ``r`` of pattern position ``i``; a tied
-    head is the embedding's transposed view, as ``registry.init_model``
+    config's head holds the final norm alone, as ``registry.init_model``
     makes it."""
     if cfg.is_encdec:
         return encdec_params_from_stacked(cfg, params, device)
@@ -70,10 +70,9 @@ def params_from_stacked(cfg, params, device):
         for r in range(rep):
             for i in range(len(pat)):
                 layers.append(_map(seg[i], lambda a: conv(np.asarray(a)[r])))
-    w = stem["embed"]["embedding"].T if cfg.tie_embeddings \
-        else conv(params["head"]["w"])
-    head = {"final_norm": _map(params["final_norm"], conv),
-            "head": {"w": w}}
+    head = {"final_norm": _map(params["final_norm"], conv)}
+    if not cfg.tie_embeddings:
+        head["head"] = {"w": conv(params["head"]["w"])}
     return stem, layers, head
 
 
