@@ -18,11 +18,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    and 64-bit counters) for no local-memory traffic (spills), the dropout
    kernels also for 16-byte loads and stores (LDG.E.128, STG.E.128), the
    32-bit-counter ones' static ALU-pipe and multiply-add-pipe instructions
-   an element and instruction mixes printed, and the CUDA-core SSD scan's
+   an element and instruction mixes printed, the CUDA-core SSD scan's
    16 builds (``ssd_scan.cu``) for no local-memory traffic and cp.async
-   (LDGSTS) in their float32 builds;
+   (LDGSTS) in their float32 builds, and rmsnorm's 72 builds
+   (``rmsnorm.cu``: their registers and spills summed up) for no
+   local-memory traffic and, on 16-byte vectors, LDG.E.128 and STG.E.128;
 3. every kernel against its plain PyTorch version on the card at the main
-   paths' shapes (rmsnorm [4096, 4096]; flash attention [1, 4096, 32, 128]
+   paths' shapes (rmsnorm [4096, 4096] with the first port's kernel
+   (``rmsnorm_rowblock_cuda``) on the same inputs, then each of its routes
+   (``RMSNORM_ROUTE_CASES``: both sides of the warp route's width limit,
+   ragged d 1000 and 4095, x[:, 1:], MLA's strided kv_norm input with no
+   copy kernel in its profile, a bf16 scale, 1 to 8192 rows, float32 at
+   2560 and 5120, past the cap), each call exactly one launch, and its
+   routes timed against each other (``rmsnorm_route_sweep``); flash
+   attention [1, 4096, 32, 128]
    causal on all four routes: float32 on the 3xTF32 tensor-core route MHA
    and GQA, plus head_dim 16 and 64, ragged S 4000, bidirectional and a
    peaked softmax, each also against a float64 evaluation, with the
@@ -58,7 +67,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    the narrow widths also on signed inputs (witness only) and in bf16,
    each yardstick timed beside its bound and the composed
    ``ref.ssd_chunked`` with its kernels' device time a call), with kernel,
-   plain-version and library-call times (rmsnorm and ``F.rms_norm``, each
+   plain-version and library-call times (rmsnorm, the first port's
+   kernel and ``F.rms_norm``, each
    flash route and ``F.scaled_dot_product_attention`` interleaved, the
    bf16 mma.sync route with the CUDA-core kernel too; each SSD
    route beside
@@ -260,9 +270,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    steps from it against two from the live state;
 13. a JSON line with every kernel's numbers (each record's ``shape`` names
    the inputs its times were taken on; rmsnorm's ``launch_cost``: the
-   kernel and ``F.rms_norm`` at [1500, 512], [1024, 2560] and [4, 4096]
-   bf16 by events, by the profiler's device time a launch and by the
-   host's time a call), one with every recovery's, one
+   kernel, the first port's kernel and ``F.rms_norm`` at [1500, 512],
+   [1024, 2560], [4, 4096], [4096, 4096] and MLA's kv_norm view
+   [1024, 512 of 576], bf16, by events, by the profiler's device time a
+   launch, by queued device time a call and by the host's time a call,
+   with the route each took; its ``route_sweep``), one with every
+   recovery's, one
    with every scenario's, one with every fuzz run's, one with the serving
    phase's, one with the launcher's, one with each phase's wall seconds
    and, of them, the ring snapshot checks' (``PhaseClock``), then the
@@ -309,7 +322,9 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda, flash_attention_cuda_cores, uses_bf16_mma,
     uses_sm90, uses_tf32)
 from repro_torch.kernels.fused_adam import fused_adam_cuda_  # noqa: E402
-from repro_torch.kernels.rmsnorm import rmsnorm_cuda  # noqa: E402
+from repro_torch.kernels import rmsnorm as rmsnorm_mod  # noqa: E402
+from repro_torch.kernels.rmsnorm import (  # noqa: E402
+    rmsnorm_cuda, rmsnorm_rowblock_cuda)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_scan_cuda, ssd_scan_cuda_cores, uses_sm90 as ssd_uses_sm90,
     uses_sm90_f32 as ssd_uses_sm90_f32)
@@ -367,10 +382,14 @@ ALU_PIPE_OPS = ("LOP3", "SHF", "IADD3", "ISETP", "FSEL", "SEL", "PRMT",
                 "LEA", "IMNMX", "FSETP", "PLOP3")
 # 16-byte vectors a thread of the dropout kernel (kVectors)
 DROPOUT_VECTORS = 4
+# the kernels of csrc/rmsnorm.cu's three routes (mangled or not)
+RMSNORM_ROUTE_KERNELS = re.compile(r"rmsnorm_(?:warp|block|two_pass)_kernel")
 # the kernels of csrc/, by the names the profiler gives them
 HAND_WRITTEN_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_tf32_kernel",
                         "flash_fwd_bf16_mma_kernel", "flash_fwd_kernel",
-                        "rmsnorm_kernel", "fused_adam_kernel",
+                        "rmsnorm_warp_kernel", "rmsnorm_block_kernel",
+                        "rmsnorm_two_pass_kernel", "rmsnorm_rowblock_kernel",
+                        "fused_adam_kernel",
                         "ssd_f32_chunk_state_kernel",
                         "ssd_f32_chunk_out_kernel", "ssd_chunk_state_kernel",
                         "ssd_chunk_out_kernel", "ssd_state_pass_kernel",
@@ -420,11 +439,13 @@ MLA_TWIN_LAUNCHES = {"rmsnorm": 204, "flash_attention": 0, "fused_adam": 6,
                      "ssd_scan": 0, "flash_attention_sm90": 0,
                      "ssd_scan_sm90": 0, "flash_attention_tf32": 0,
                      "ssd_scan_sm90_f32": 0, "flash_attention_bf16_mma": 0,
-                     "threefry_dropout": 0}
+                     "threefry_dropout": 0, "rmsnorm_rowblock": 0}
 
 SOURCES = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:22"),
+    "rmsnorm_rowblock": ("src/repro_torch/kernels/csrc/rmsnorm_rowblock.cu",
+                         "src/repro/kernels/rmsnorm.py:22"),
     "flash_attention_sm90": (
         "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "src/repro/kernels/flash_attention.py:78"),
@@ -450,6 +471,18 @@ SOURCES = {
                          "src/repro/models/layers.py:50"),
 }
 DESIGNS = {
+    "rmsnorm": "the row in registers as 16-byte vectors (one-element "
+               "vectors where the width, base or row stride is not a "
+               "multiple of 16 bytes), x read once with its row stride, the "
+               "scale in its own dtype, the arguments as one packed record: "
+               "a warp a row up to 4 vectors a lane, shuffles alone; wider, "
+               "a block a row at 2 vectors a thread up to 384 threads (512 "
+               "on fewer rows than SMs), then 4 or 8 up to 512, one "
+               "shared-memory step; a two-pass block a row past 512 "
+               "threads x 8 vectors",
+    "rmsnorm_rowblock": "only when launched explicitly: the first port's "
+                        "256-thread block a row, one-element loads, x read "
+                        "twice, a float32 scale",
     "flash_attention_sm90": "bf16, head_dim 64/128: wgmma m64n128k16 for "
                             "Q.K^T and register-A wgmma for P.V (P as bf16 "
                             "hi + lo), K/V by TMA in a 2-stage mbarrier ring",
@@ -500,7 +533,7 @@ DENSE_LAUNCHES = {"rmsnorm": 40, "flash_attention": 0, "fused_adam": 4,
                   "ssd_scan": 0, "flash_attention_sm90": 16,
                   "ssd_scan_sm90": 0, "flash_attention_tf32": 0,
                   "ssd_scan_sm90_f32": 0, "flash_attention_bf16_mma": 0,
-                  "threefry_dropout": 0}
+                  "threefry_dropout": 0, "rmsnorm_rowblock": 0}
 # the same at dropout 0.1: per item and layer two dropouts (attention,
 # MLP), each launched forward and backward: 2 layers x 2 ops x 2 x 4 items
 # x 2 steps = 64
@@ -517,7 +550,7 @@ SSM_LAUNCHES = {"rmsnorm": 72, "flash_attention": 0, "fused_adam": 4,
                 "ssd_scan": 0, "flash_attention_sm90": 0,
                 "ssd_scan_sm90": 32, "flash_attention_tf32": 0,
                 "ssd_scan_sm90_f32": 0, "flash_attention_bf16_mma": 0,
-                "threefry_dropout": 0}
+                "threefry_dropout": 0, "rmsnorm_rowblock": 0}
 # exact launches over the step of the float32 mamba2 path (2 layers, 4
 # items a step; 1 step, cut from 2 for the MoE slice's time): per item one
 # SSD scan a layer, two rmsnorms a layer (the block's norm and the gated
@@ -527,14 +560,14 @@ SSM_F32_LAUNCHES = {"rmsnorm": 20, "flash_attention": 0, "fused_adam": 2,
                     "ssd_scan": 0, "flash_attention_sm90": 0,
                     "ssd_scan_sm90": 0, "flash_attention_tf32": 0,
                     "ssd_scan_sm90_f32": 8, "flash_attention_bf16_mma": 0,
-                    "threefry_dropout": 0}
+                    "threefry_dropout": 0, "rmsnorm_rowblock": 0}
 # exact launches over the 4 steps of phase 7: after a shrink each step is 2
 # items of batch 2, after the scale-out 4 items of batch 1
 RECOVERY_LAUNCHES = {"rmsnorm": 108, "flash_attention": 0, "fused_adam": 8,
                      "ssd_scan": 0, "flash_attention_sm90": 0,
                      "ssd_scan_sm90": 48, "flash_attention_tf32": 0,
                      "ssd_scan_sm90_f32": 0, "flash_attention_bf16_mma": 0,
-                     "threefry_dropout": 0}
+                     "threefry_dropout": 0, "rmsnorm_rowblock": 0}
 # phase 7: (name, recovery, layer_assignment, dp_ranks, per_rank_mbs after)
 # The fail-stop leaves stage 1 one rank wide, so the engine's graph plan
 # moves layer 2 to stage 0; the fail-slow of rank (0, 0) moves layers 1 and
@@ -755,10 +788,23 @@ def phase_build() -> dict:
     _build.library()
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.last_build_seconds:.1f} s)")
+    entry, norm_regs, norm_spills = "", [], []
     for line in _build.last_build_log.splitlines():
+        entry = line if "Compiling entry" in line else entry
+        if RMSNORM_ROUTE_KERNELS.search(entry) and "arning" not in line:
+            # rmsnorm.cu's 72 builds: summed up below
+            used = re.search(r"Used (\d+) registers", line)
+            norm_regs += [int(used.group(1))] if used else []
+            if re.search(r"[1-9]\d* bytes spill", line):
+                norm_spills.append(f"{entry.split()[-3]}: {line.strip()}")
+            continue
         if any(w in line for w in ("Compiling entry", "Used", "spill",
                                    "arning")):
             log("  " + line.strip())
+    log(f"  rmsnorm.cu: {len(norm_regs)} kernels, "
+        f"{min(norm_regs, default=0)}-{max(norm_regs, default=0)} "
+        f"registers, spills: {norm_spills or 'none'}")
+    check(not norm_spills, "rmsnorm.cu: a build spills registers")
     return sass_check()
 
 
@@ -828,7 +874,9 @@ def sass_check() -> dict:
     64-bit counter) must not either, and must load and store 16-byte
     vectors (LDG.E.128, STG.E.128); the 32-bit-counter kernels' static
     ALU-pipe and multiply-add-pipe instructions an element are printed and
-    returned, by dtype name, beside their instruction mixes."""
+    returned, by dtype name, beside their instruction mixes.  rmsnorm's
+    route kernels must not touch local memory either, and those on 16-byte
+    vectors must load and store them (LDG.E.128, STG.E.128)."""
     counts, mix = parse_sass(sass_of(_build.build()))
     sm90 = {f: c for f, c in counts.items() if "flash_fwd_sm90_kernel" in f}
     check(len(sm90) == 2, f"expected 2 tensor-core flash kernels in the "
@@ -928,44 +976,305 @@ def sass_check() -> dict:
                 f"element) over {per} elements a thread, with the sample "
                 f"fold and the scalar head and tail (one rolled hash "
                 f"each); mix: " + ", ".join(f"{k} {v}" for k, v in top))
+    norm = {f: c for f, c in counts.items()
+            if RMSNORM_ROUTE_KERNELS.search(f)}
+    # the first integer template argument is VEC, elements a vector
+    wide = {f: c for f, c in norm.items()
+            if re.search(r"_kernelI.*?Li(\d+)E", f).group(1) in ("4", "8")}
+    check(len(norm) == 72 and len(wide) == 36,
+          f"expected 72 rmsnorm route kernels (2 dtypes x 2 scale dtypes x "
+          f"2 vector widths x 9), 36 of them on 16-byte vectors, in the "
+          f"SASS; found {len(norm)} and {len(wide)}")
+    check(all(c["LDL/STL"] == 0 for c in norm.values()),
+          "rmsnorm.cu: local-memory traffic")
+    narrow = {f: {op: n for op, n in mix[f].items()
+                  if op.startswith(("LDG", "STG"))}
+              for f, c in wide.items()
+              if not (c["LDG.128"] > 0 and c["STG.128"] > 0)}
+    check(not narrow, f"rmsnorm.cu: 16-byte loads and stores (LDG.E.128, "
+                      f"STG.E.128) expected in every 16-byte-vector build; "
+                      f"without them: {narrow}")
+    log(f"  SASS rmsnorm.cu: {len(norm)} kernels, no LDL/STL; the "
+        f"{len(wide)} 16-byte-vector builds with LDG.E.128 and STG.E.128")
     return pipes
 
 
 def kernel_rmsnorm(gen) -> dict:
+    """rmsnorm at [4096, 4096] in float32 and bf16 against the plain version
+    under the unchanged tiers, the first port's kernel
+    (``rmsnorm_rowblock_cuda``) on the same inputs; in bf16 both timed
+    beside ``F.rms_norm`` and a copy of x.  Returns the records of both
+    kernels."""
     rows, d, eps = 4096, 4096, 1e-5
-    rec = {}
+    recs = {}
     for dtype, tier in ((torch.float32, "rmsnorm"),
                         (torch.bfloat16, "rmsnorm_bf16")):
         x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
         scale = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
-        y = rmsnorm_cuda(x, scale, eps)
-        ok, err = within(y, ref.rmsnorm_reference(x, scale, eps),
-                         ops.TOLERANCE_TIERS[tier])
-        log(f"rmsnorm {dtype}: max_abs_err {err:.3e} tier {tier} ok={ok}")
-        check(ok, f"rmsnorm {dtype} outside {tier}")
+        want = ref.rmsnorm_reference(x, scale, eps)
+        errs = {}
+        for name, fn in (("rmsnorm", rmsnorm_cuda),
+                         ("rmsnorm_rowblock", rmsnorm_rowblock_cuda)):
+            ok, errs[name] = within(fn(x, scale, eps), want,
+                                    ops.TOLERANCE_TIERS[tier])
+            log(f"{name} {dtype}: max_abs_err {errs[name]:.3e} tier {tier} "
+                f"ok={ok}")
+            check(ok, f"{name} {dtype} outside {tier}")
         if dtype == torch.bfloat16:     # the main path's dtype
             nbytes = 2 * rows * d * x.element_size() + 4 * d
             b, by = bound(nbytes, 4 * rows * d, dtype)
             sc = scale.to(dtype)
-            # kernel and library call in turn, 5 rounds of 50 launches
+            y = torch.empty_like(x)
+            # the kernels and the library call in turn, 5 rounds of 50; a
+            # copy of x, the same bytes read and written, as the yardstick
+            # of what a stream reaches on this card
             med = interleaved_medians(
-                {"kernel": lambda: rmsnorm_cuda(x, scale, eps),
-                 "library": lambda: F.rms_norm(x, (d,), sc, eps)}, 5, 50)
+                {"rmsnorm": lambda: rmsnorm_cuda(x, scale, eps),
+                 "rmsnorm_rowblock": lambda: rmsnorm_rowblock_cuda(
+                     x, scale, eps),
+                 "library": lambda: F.rms_norm(x, (d,), sc, eps),
+                 "copy": lambda: y.copy_(x)}, 5, 50)
             log(f"  rmsnorm bf16 medians of 5 interleaved rounds of 50: "
-                f"kernel {med['kernel']:.5f} ms, F.rms_norm "
-                f"{med['library']:.5f} ms")
-            rec = dict(shape=f"bfloat16 [{rows}, {d}]",
-                       max_abs_err=err, ms=med["kernel"],
-                       plain_ms=time_ms(lambda: ref.rmsnorm_reference(
-                           x, scale, eps), 20),
-                       bound_ms=b, bound_by=by, library_ms=med["library"])
-    return rec
+                f"kernel {med['rmsnorm']:.5f} ms, first port's kernel "
+                f"{med['rmsnorm_rowblock']:.5f} ms, F.rms_norm "
+                f"{med['library']:.5f} ms, a copy of x "
+                f"{med['copy']:.5f} ms, bound {b:.5f} ms ({by})")
+            plain = time_ms(lambda: ref.rmsnorm_reference(x, scale, eps), 20)
+            for name in ("rmsnorm", "rmsnorm_rowblock"):
+                recs[name] = dict(shape=f"bfloat16 [{rows}, {d}]",
+                                  max_abs_err=errs[name], ms=med[name],
+                                  plain_ms=plain, bound_ms=b, bound_by=by,
+                                  library_ms=med["library"],
+                                  copy_ms=med["copy"])
+    return recs
 
 
-# the rmsnorm kernel against F.rms_norm where it lost by events (run 82:
-# whisper-base's encoder norm [1500, 512]), at the launcher's mamba2 norm
-# [1024, 2560] (seq 512 x batch 2) and at a decode's [4, 4096], bf16
-RMSNORM_COST_SHAPES = ((1500, 512), (1024, 2560), (4, 4096))
+def rmsnorm_route(x: torch.Tensor, scale: torch.Tensor):
+    """The plan ``rmsnorm_cuda`` takes for ``x`` and ``scale``."""
+    stride = rmsnorm_mod.row_stride(x)
+    if stride is None:
+        x, stride = x.contiguous(), x.shape[-1]
+    d = x.shape[-1]
+    return rmsnorm_mod.plan(x.numel() // d, d, x.dtype, stride,
+                            (x.data_ptr() | scale.data_ptr()) % 16 == 0)
+
+
+def describe(p) -> str:
+    return (f"{p.route} route, {p.vec}-element vectors, {p.vectors} a "
+            f"thread, {p.threads} threads")
+
+
+# each rmsnorm route against the plain version: (what, rows, d, width of
+# the tensor the rows are a slice of, column offset, dtype, scale dtype,
+# route, elements a vector)
+RMSNORM_ROUTE_CASES = (
+    ("the warp route at its limit", 1024, 1024, 1024, 0, BF16, F32,
+     "warp", 8),
+    ("the block route past the limit", 1024, 1032, 1032, 0, BF16, F32,
+     "block", 8),
+    ("the warp route at its limit, float32", 1024, 512, 512, 0, F32, F32,
+     "warp", 4),
+    ("the block route past the limit, float32", 1024, 516, 516, 0, F32,
+     F32, "block", 4),
+    ("ragged over the lanes (125 vectors)", 1024, 1000, 1000, 0, BF16, F32,
+     "warp", 8),
+    ("ragged over the threads (250 vectors)", 1024, 1000, 1000, 0, F32,
+     F32, "block", 4),
+    ("ragged d", 1024, 4095, 4095, 0, BF16, F32, "block", 1),
+    ("ragged d, float32", 1024, 4095, 4095, 0, F32, F32, "block", 1),
+    ("ragged narrow d", 64, 100, 100, 0, BF16, F32, "warp", 1),
+    ("unaligned x[:, 1:]", 1024, 4095, 4096, 1, BF16, F32, "block", 1),
+    ("unaligned x[:, 1:] of 513", 1024, 512, 513, 1, BF16, F32, "block",
+     1),
+    ("MLA's kv_norm, strided", 1024, 512, 576, 0, BF16, F32, "warp", 8),
+    ("MLA's kv_norm, strided, float32", 1024, 512, 576, 0, F32, F32,
+     "warp", 4),
+    ("MLA's q_norm", 1024, 1536, 1536, 0, BF16, F32, "block", 8),
+    ("bf16 scale", 1024, 4096, 4096, 0, BF16, BF16, "block", 8),
+    ("bf16 scale", 1500, 512, 512, 0, BF16, BF16, "warp", 8),
+    ("bf16 scale, float32 x", 1024, 2560, 2560, 0, F32, BF16, "block", 4),
+    ("one row", 1, 512, 512, 0, BF16, F32, "warp", 8),
+    ("one row", 1, 4096, 4096, 0, BF16, F32, "block", 8),
+    ("a decode step", 4, 512, 512, 0, BF16, F32, "warp", 8),
+    ("a decode step", 4, 4096, 4096, 0, BF16, F32, "block", 8),
+    ("a decode step", 4, 8192, 8192, 0, BF16, F32, "block", 8),
+    ("whisper-base's encoder", 1500, 512, 512, 0, BF16, F32, "warp", 8),
+    ("1500 rows", 1500, 4096, 4096, 0, BF16, F32, "block", 8),
+    ("8192 rows", 8192, 512, 512, 0, BF16, F32, "warp", 8),
+    ("8192 rows", 8192, 4096, 4096, 0, BF16, F32, "block", 8),
+    ("8192 rows", 8192, 7168, 7168, 0, BF16, F32, "block", 8),
+    ("float32 mamba2 d_model", 1024, 2560, 2560, 0, F32, F32, "block", 4),
+    ("float32 mamba2 d_inner", 1024, 5120, 5120, 0, F32, F32, "block", 4),
+    ("llama3-405b's d_model", 64, 16384, 16384, 0, BF16, F32, "block", 8),
+    ("llama3-405b's d_model", 1024, 16384, 16384, 0, BF16, F32, "block",
+     8),
+    ("llama3-405b's d_model, float32", 64, 16384, 16384, 0, F32, F32,
+     "block", 4),
+    ("a tiny twin's width", 64, 96, 96, 0, BF16, F32, "warp", 8),
+    ("past the cap", 4, 40000, 40000, 0, BF16, F32, "two_pass", 8),
+    ("past the cap, float32", 4, 20000, 20000, 0, F32, BF16, "two_pass",
+     4),
+    ("past the cap, ragged", 4, 40001, 40001, 0, BF16, F32, "two_pass", 1),
+)
+
+
+def kernel_rmsnorm_routes(gen) -> dict:
+    """Each route of ``csrc/rmsnorm.cu`` (``RMSNORM_ROUTE_CASES``) against
+    the plain version under the unchanged tiers, each call exactly one
+    ``rmsnorm`` launch and nothing else; MLA's strided kv_norm input also
+    under the profiler, which must show the one kernel and no copy.
+    Returns the largest error by dtype."""
+    worst = {}
+    for what, rows, d, wide, off, dtype, sdtype, route, vec in \
+            RMSNORM_ROUTE_CASES:
+        xw = torch.randn(rows, wide, generator=gen, device="cuda").to(dtype)
+        x = xw[:, off:off + d]
+        scale = (1 + 0.1 * torch.randn(d, generator=gen,
+                                       device="cuda")).to(sdtype)
+        p = rmsnorm_route(x, scale)
+        before = dict(_build.LAUNCHES)
+        y = rmsnorm_cuda(x, scale, 1e-5)
+        after = dict(_build.LAUNCHES)
+        tier = "rmsnorm" if dtype == F32 else "rmsnorm_bf16"
+        ok, err = within(y, ref.rmsnorm_reference(x, scale, 1e-5),
+                         ops.TOLERANCE_TIERS[tier])
+        label = (f"rmsnorm {what}: {dtype} [{rows}, {d}]"
+                 f"{f' of {wide}' if wide != d else ''}, {sdtype} scale")
+        log(f"{label}: {describe(p)}; max_abs_err {err:.3e} tier {tier} "
+            f"ok={ok}")
+        check((p.route, p.vec) == (route, vec),
+              f"{label}: took {p}, expected the {route} route with "
+              f"{vec}-element vectors")
+        check({k: after[k] - before[k] for k in after if after[k] != before[k]}
+              == {"rmsnorm": 1}, f"{label}: launches {before} -> {after}")
+        check(ok, f"{label} outside {tier}")
+        worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
+    kv = torch.randn(1024, 576, generator=gen, device="cuda").to(BF16)
+    scale = 1 + 0.1 * torch.randn(512, generator=gen, device="cuda")
+    for _ in range(3):       # a trace that recorded no launch is taken again
+        kernels = device_us_by_kernel(
+            lambda: rmsnorm_cuda(kv[:, :512], scale, 1e-5), 20)
+        if kernels:
+            break
+    log(f"  rmsnorm on MLA's kv_norm view [1024, 512 of 576]: profile "
+        f"{ {k: round(v, 2) for k, v in kernels.items()} }")
+    check(set(kernels) == {"rmsnorm_warp_kernel"},
+          f"MLA's kv_norm view: expected the warp route's kernel alone in "
+          f"the profile, found {sorted(kernels)}")
+    return worst
+
+
+# A spin kernel's cycles a queued call in queued_us: ~150 us at the
+# card's ~1.98 GHz, several times a wrapper's host time a call
+SPIN_CYCLES_A_CALL = 300_000
+
+
+def queued_us(fn, iters: int = 100) -> tuple:
+    """Device microseconds a call of ``fn`` with the calls back to back:
+    a spin kernel (``torch.cuda._sleep``) holds the stream while the host
+    enqueues all ``iters`` calls, so CUDA events time the device (the gaps
+    between launches included), not the host's launch rate.  Returns the
+    time and whether the host still outlasted the spin (host-paced)."""
+    fn()
+    torch.cuda.synchronize()
+    spin, start, end = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(3))
+    spin.record()
+    torch.cuda._sleep(SPIN_CYCLES_A_CALL * iters)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    return (start.elapsed_time(end) * 1e3 / iters,
+            host_ms > spin.elapsed_time(start))
+
+
+# the width limit between the warp and the block route, timed both ways
+# (bf16 and float32 widths a warp can take, at a decode's 4 rows,
+# whisper-base's 1500 and a batch-2 item's 8192); the warp route's rows a
+# block; and the block route's vectors a thread (1, 2, 4, 8, threads
+# following) at the published widths it takes, on 4, 1024 and 8192 rows
+ROUTE_SWEEP_WIDTHS = ((BF16, (512, 1024, 1536, 2048)), (F32, (512, 1024)))
+ROUTE_SWEEP_ROWS = (4, 1500, 8192)
+WARP_SWEEP_WARPS = (2, 4, 8)
+BLOCK_SWEEP_WIDTHS = (2560, 4096, 5120, 6144, 7168, 8192, 16384)
+
+
+def rmsnorm_route_sweep(gen) -> dict:
+    """Times the routes of ``csrc/rmsnorm.cu`` against each other on the
+    same inputs (``queued_us``, 100 calls a point), each variant first held
+    to the plain version: the warp and the block route at the widths both
+    take (``WARP_ROUTE_MAX_VECTORS`` in ``kernels/rmsnorm.py`` is set from
+    this), the warp route at 2, 4 and 8 rows a block, and the block route
+    at 1, 2, 4 and 8 vectors a thread at ``BLOCK_SWEEP_WIDTHS`` (its rule
+    in ``block_plan`` is set from this).  Returns the times by point."""
+    out = {}
+
+    def point(key, x, scale, p):
+        tier = "rmsnorm" if x.dtype == F32 else "rmsnorm_bf16"
+        ok, err = within(rmsnorm_cuda(x, scale, 1e-5, route=p),
+                         ref.rmsnorm_reference(x, scale, 1e-5),
+                         ops.TOLERANCE_TIERS[tier])
+        check(ok, f"rmsnorm sweep {key} ({p}): outside {tier}, {err:.3e}")
+        us, paced = queued_us(lambda: rmsnorm_cuda(x, scale, 1e-5, route=p))
+        out[key] = dict(us=us, plan=p._asdict(), host_paced=paced)
+        return us, paced
+
+    for dtype, widths in ROUTE_SWEEP_WIDTHS:
+        vec = 16 // (4 if dtype == F32 else 2)
+        for d in widths:
+            for rows in ROUTE_SWEEP_ROWS:
+                x = torch.randn(rows, d, generator=gen,
+                                device="cuda").to(dtype)
+                scale = 1 + 0.1 * torch.randn(d, generator=gen,
+                                              device="cuda")
+                w, wp = point(f"{dtype} [{rows}, {d}] warp", x, scale,
+                              rmsnorm_mod.warp_plan(vec, d // vec))
+                b, bp = point(f"{dtype} [{rows}, {d}] block", x, scale,
+                              rmsnorm_mod.block_plan(
+                                  vec, d // vec,
+                                  few_rows=rows < rmsnorm_mod.FEW_ROWS))
+                log(f"  rmsnorm sweep {dtype} [{rows}, {d}]: warp route "
+                    f"{w:.3f} us, block route {b:.3f} us a call (queued"
+                    f"{', host-paced' if wp or bp else ''})")
+    for rows in (1500, 8192):
+        x = torch.randn(rows, 512, generator=gen, device="cuda").to(BF16)
+        scale = 1 + 0.1 * torch.randn(512, generator=gen, device="cuda")
+        times = {w: point(f"bf16 [{rows}, 512] warp, {w} rows a block", x,
+                          scale, rmsnorm_mod.warp_plan(8, 64, w))
+                 for w in WARP_SWEEP_WARPS}
+        log(f"  rmsnorm sweep bf16 [{rows}, 512], warp route by rows a "
+            f"block: " + ", ".join(f"{w}: {t[0]:.3f} us" for w, t in
+                                   times.items()))
+    for d in BLOCK_SWEEP_WIDTHS:
+        for rows in (4, 1024, 8192):
+            x = torch.randn(rows, d, generator=gen, device="cuda").to(BF16)
+            scale = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+            times = {}
+            for v in (1, 2, 4, 8):
+                p = rmsnorm_mod.block_plan(8, d // 8, v)
+                if p.route == "block" and p.threads >= 64:
+                    what = f"{p.threads} x {p.vectors}"
+                    times[what] = point(f"bf16 [{rows}, {d}] block, "
+                                        f"{what}", x, scale, p)
+            log(f"  rmsnorm sweep bf16 [{rows}, {d}], block route by "
+                f"threads x vectors: " + ", ".join(
+                    f"{k}: {v[0]:.3f} us" for k, v in times.items()))
+            del x
+    return out
+
+
+# the rmsnorm kernel, the first port's kernel and F.rms_norm, bf16, by
+# (rows, d, width of the tensor the rows are a slice of): where the first
+# kernel lost by events (run 82: whisper-base's encoder norm [1500, 512]),
+# the launcher's mamba2 norm [1024, 2560] (seq 512 x batch 2), a decode's
+# [4, 4096], phase 3's [4096, 4096] and MLA's kv_norm input, a view
+RMSNORM_COST_SHAPES = ((1500, 512, 512), (1024, 2560, 2560),
+                       (4, 4096, 4096), (4096, 4096, 4096),
+                       (1024, 512, 576))
 
 
 def host_call_us(fn, iters: int) -> float:
@@ -981,41 +1290,60 @@ def host_call_us(fn, iters: int) -> float:
     return t
 
 
+def host_call_medians(fns: dict, rounds: int, iters: int) -> dict:
+    """Median over ``rounds`` of each function's ``host_call_us``, the
+    functions taken in turn within each round."""
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name].append(host_call_us(fn, iters))
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
 def rmsnorm_launch_cost(gen) -> dict:
     """At each of ``RMSNORM_COST_SHAPES``: the kernel's wrapper with the
-    scale in float32 (the models' norms: no cast) and in bf16 (the wrapper
-    casts it to float32 first, a second launch), and ``F.rms_norm``, each
-    three ways: CUDA events (medians of 5 interleaved rounds of 50 calls;
-    host-paced where a call's host time exceeds its device time), the
-    profiler's device microseconds a launch by kernel, and the host's
-    microseconds a call.  No kernel changes."""
+    scale in float32 (the models' norms) and in bf16 (read as it is), the
+    first port's kernel (``rmsnorm_rowblock_cuda``: a strided x copied
+    first, a bf16 scale cast), and ``F.rms_norm``, each four ways: CUDA
+    events (medians of 5 interleaved rounds of 50 calls; host-paced where a
+    call's host time exceeds its device time), the profiler's device
+    microseconds a launch by kernel, the device's microseconds a call with
+    the calls queued (``queued_us``), and the host's microseconds a call
+    (medians of 5 interleaved rounds of 200).  Logs the route each shape
+    takes."""
     eps, out = 1e-5, {}
-    for rows, d in RMSNORM_COST_SHAPES:
-        x = torch.randn(rows, d, generator=gen, device="cuda").to(
-            torch.bfloat16)
+    for rows, d, wide in RMSNORM_COST_SHAPES:
+        x = torch.randn(rows, wide, generator=gen, device="cuda").to(
+            torch.bfloat16)[:, :d]
         s32 = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
         s16 = s32.to(torch.bfloat16)
         fns = {"kernel": lambda: rmsnorm_cuda(x, s32, eps),
                "kernel, bf16 scale": lambda: rmsnorm_cuda(x, s16, eps),
+               "first port's kernel": lambda: rmsnorm_rowblock_cuda(
+                   x, s32, eps),
                "F.rms_norm": lambda: F.rms_norm(x, (d,), s16, eps)}
         events = interleaved_medians(fns, 5, 50)
         device = {k: device_us_by_kernel(fn, 50) for k, fn in fns.items()}
-        host = {k: host_call_us(fn, 200) for k, fn in fns.items()}
+        queued = {k: queued_us(fn)[0] for k, fn in fns.items()}
+        host = host_call_medians(fns, 5, 200)
         b, by = bound(2 * rows * d * 2 + 4 * d, 4 * rows * d, torch.bfloat16)
-        key = f"[{rows}, {d}]"
-        out[key] = dict(events_ms=events, device_us_by_kernel=device,
+        key = f"[{rows}, {d}]" + (f" of {wide}" if wide != d else "")
+        route = describe(rmsnorm_route(x, s32))
+        out[key] = dict(route=route, events_ms=events,
+                        device_us_by_kernel=device,
                         device_us_a_call={k: sum(v.values())
                                           for k, v in device.items()},
-                        host_us_a_call=host, bound_ms=b, bound_by=by)
+                        queued_us_a_call=queued, host_us_a_call=host,
+                        bound_ms=b, bound_by=by)
         rounded = {k: {n: round(u, 2) for n, u in v.items()}
                    for k, v in device.items()}
-        log(f"rmsnorm launch cost bf16 {key}: events ms "
+        log(f"rmsnorm launch cost bf16 {key} ({route}): events ms "
             f"{ {k: round(v, 5) for k, v in events.items()} }; device us "
-            f"by kernel {rounded}; host us a call "
-            f"{ {k: round(v, 2) for k, v in host.items()} }; bound "
+            f"by kernel {rounded}; queued device us a call "
+            f"{ {k: round(v, 3) for k, v in queued.items()} }; host us a "
+            f"call { {k: round(v, 2) for k, v in host.items()} }; bound "
             f"{b:.5f} ms ({by})")
     return out
-
 
 def kernel_flash(gen) -> dict:
     """Flash attention at codeqwen's widths against the plain version under
@@ -4562,7 +4890,9 @@ def main() -> None:
     clock.mark("phases 1-2 (device, build, SASS)")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    recs = {"rmsnorm": kernel_rmsnorm(gen), **kernel_flash(gen)}
+    recs = {**kernel_rmsnorm(gen), **kernel_flash(gen)}
+    recs["rmsnorm"]["routes_max_abs_err"] = kernel_rmsnorm_routes(gen)
+    recs["rmsnorm"]["route_sweep"] = rmsnorm_route_sweep(gen)
     recs["rmsnorm"]["launch_cost"] = rmsnorm_launch_cost(gen)
     cfg = codeqwen1p5_7b.config()
     # the larger stage of the dense phase: one layer + the head

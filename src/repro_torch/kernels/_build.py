@@ -7,8 +7,10 @@ the checkout (listed in ``.gitignore``), so a changed source builds anew and
 an unchanged one is reused.  No PyTorch headers are compiled: every pointer
 and the stream cross as ``c_void_p``, sizes as ``c_int``/``c_longlong``, and
 each C entry returns its ``cudaGetLastError()``, on which :func:`launch`
-raises.  A machine with a card but no ``nvcc``, or a failed build, raises:
-there is no fallback.
+raises.  The rmsnorm entry, launched ~100,000 times a serving run, takes
+its arguments as one packed record instead (``kernels/rmsnorm.py:LAUNCH``):
+a ctypes call pays the host a conversion an argument.  A machine with a
+card but no ``nvcc``, or a failed build, raises: there is no fallback.
 
 :data:`LAUNCHES` counts kernel launches by name; :func:`launch` is the only
 place that adds to it.
@@ -22,7 +24,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -35,7 +37,9 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 _U = ctypes.c_uint
 #: C entry points and their argument types (see csrc/*.cu)
 SIGNATURES = {
-    "repro_rmsnorm": [_P, _P, _P, _LL, _I, _F, _I, _P],
+    # one packed launch record (kernels/rmsnorm.py:LAUNCH)
+    "repro_rmsnorm": [ctypes.c_char_p],
+    "repro_rmsnorm_rowblock": [_P, _P, _P, _LL, _I, _F, _I, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
                               _I, _F, _I, _P],
@@ -59,9 +63,12 @@ LAUNCHES: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
                             "flash_attention_tf32": 0,
                             "ssd_scan_sm90_f32": 0,
                             "flash_attention_bf16_mma": 0,
-                            "threefry_dropout": 0}
+                            "threefry_dropout": 0, "rmsnorm_rowblock": 0}
 
 _lib: Optional[ctypes.CDLL] = None
+#: C entries bound by :func:`launch`, and the ``library`` they came from
+_entries: Dict[str, Callable[..., int]] = {}
+_entries_from: Optional[Callable[[], ctypes.CDLL]] = None
 last_build_seconds: float = 0.0
 last_build_log: str = ""
 
@@ -141,8 +148,17 @@ def library() -> ctypes.CDLL:
 
 def launch(kernel: str, entry: str, *args) -> None:
     """Call C entry ``entry`` of the library, count one launch of
-    ``kernel``, and raise if CUDA reports an error for the launch."""
-    err = getattr(library(), entry)(*args)
+    ``kernel``, and raise if CUDA reports an error for the launch.  Each
+    entry is looked up once and its bound function reused (anew if
+    ``library`` itself was replaced, as the CPU tests do)."""
+    global _entries_from
+    if _entries_from is not library:
+        _entries.clear()
+        _entries_from = library
+    fn = _entries.get(entry)
+    if fn is None:
+        fn = _entries[entry] = getattr(library(), entry)
+    err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{entry} failed: CUDA error {err}")
     LAUNCHES[kernel] += 1

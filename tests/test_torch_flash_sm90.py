@@ -234,7 +234,8 @@ def test_flash_counts_each_route_under_its_own_kernel(monkeypatch):
                                "flash_attention_tf32": 2,
                                "ssd_scan_sm90_f32": 0,
                                "flash_attention_bf16_mma": 1,
-                               "threefry_dropout": 0}
+                               "threefry_dropout": 0,
+                               "rmsnorm_rowblock": 0}
 
 
 def test_flash_requires_card():
