@@ -268,7 +268,25 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``CheckpointManager`` on the card: a save without blocking while
    training goes on in place, restored into a fresh tree bit for bit, two
    steps from it against two from the live state;
-13. a JSON line with every kernel's numbers (each record's ``shape`` names
+13. the dry-run cells (``launch/steps.build_cell`` on the (16, 16)
+   production ``MeshShape``, ``cell.fn`` on the card): codeqwen1.5-7b at
+   its published widths cut to 8 layers, its ``train_4k`` cell at seq 1024
+   x batch 2 without remat and then with it (``torch.utils.checkpoint``,
+   each block's kernels launched again in the recompute), one step each
+   from the same seeded parameters and fresh AdamW state: the loss and
+   every parameter, mu, nu and master bitwise equal, peak device memory
+   of each; its ``prefill_32k`` cell at seq 1024 x batch 2 against
+   ``transformer.forward``'s last position (the bf16 tier elementwise) and
+   a ``decode_32k`` step at the last position after a prefill of the rest
+   (the bf16 tier for each of the 2L + 1 residual branches and the head,
+   a row's max error against its max logit); mamba2-2.7b at its widths cut
+   to 8 layers, the same train check (the SSD kernel under recompute);
+   whisper-base whole, its train cell (448 tokens, 1500 frames) with and
+   without remat, and its prefill and decode cells against
+   ``encdec.decode``; launches exact; on the host, each published
+   config's sharded parameter leaves and the parameter bytes a rank holds
+   on both production meshes;
+14. a JSON line with every kernel's numbers (each record's ``shape`` names
    the inputs its times were taken on; rmsnorm's ``launch_cost``: the
    kernel, the first port's kernel and ``F.rms_norm`` at [1500, 512],
    [1024, 2560], [4, 4096], [4096, 4096] and MLA's kv_norm view
@@ -277,7 +295,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    with the route each took; its ``route_sweep``), one with every
    recovery's, one
    with every scenario's, one with every fuzz run's, one with the serving
-   phase's, one with the launcher's, one with each phase's wall seconds
+   phase's, one with the launcher's, one with the dry-run cells', one
+   with each phase's wall seconds
    and, of them, the ring snapshot checks' (``PhaseClock``), then the
    result line.
 """
@@ -335,6 +354,10 @@ from repro_torch.data.pipeline import (GlobalBatchSampler,  # noqa: E402
                                        make_batch)
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.launch.mesh import production_mesh_shape  # noqa: E402
+from repro_torch.launch.steps import build_cell  # noqa: E402
+from repro_torch.parallel import sharding  # noqa: E402
 from repro_torch.models import encdec as E  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.config import (ATTN, ATTN_MOE, MAMBA,  # noqa: E402
@@ -4571,21 +4594,24 @@ def adam_gate(pre: dict, params, state: dict, cfg: AdamConfig) -> dict:
     (``ops.fused_adam_`` on CPU tensors) from its copied bf16 or float32
     gradient and pre-step state, held to the ``fused_adam`` tier against
     the card's; whether bitwise (both sides take the bias corrections of
-    ``ops.adam_scalars``)."""
+    ``ops.adam_scalars``).  The CPU result is compared on the card, in
+    place in the copies ``pre`` holds (the comparison's passes over the
+    embedding's 129 M elements took seconds on the host)."""
     out = {}
     for path, c in pre.items():
         g = c["g"].reshape(-1).float().contiguous()
-        new = {k: c[k].reshape(-1).clone() for k in ("master", "mu", "nu")}
+        new = {k: c[k].reshape(-1) for k in ("master", "mu", "nu")}
         ops.fused_adam_(g, new["master"], new["mu"], new["nu"],
                         step=state["step"], b1=cfg.b1, b2=cfg.b2,
                         eps=cfg.eps, lr=cfg.lr,
                         weight_decay=cfg.weight_decay)
-        card = {k: v.reshape(-1).cpu() for k, v in
+        card = {k: v.reshape(-1) for k, v in
                 at(state["leaves"], path).items()}
-        card["p"] = at(params, path).detach().reshape(-1).cpu()
+        card["p"] = at(params, path).detach().reshape(-1)
         new["p"] = new["master"].to(card["p"].dtype)
         rec = {}
         for k in ("master", "mu", "nu", "p"):
+            new[k] = new[k].to(card[k].device)
             ok, err = within(card[k], new[k], ADAM_TIER)
             check(ok, f"AdamW gate {'/'.join(map(str, path))} {k}: max "
                       f"|diff| {err:.3e} beyond the fused_adam tier")
@@ -4622,7 +4648,7 @@ def launcher_probe(gate_paths: tuple = ()):
     def adam(params, grads, state, cfg):
         host = lambda t: t.detach().to("cpu", copy=True)     # noqa: E731
         t0 = time.perf_counter()
-        pre = {path: dict(p=host(at(params, path)), g=host(at(grads, path)),
+        pre = {path: dict(g=host(at(grads, path)),
                           **{c: host(v) for c, v in
                              at(state["leaves"], path).items()})
                for path in gate_paths} \
@@ -4865,6 +4891,328 @@ def phase_launcher(tmp: Path) -> tuple:
     return counts, recs, wall
 
 
+# phase 13: the dry-run cells on the card.  codeqwen1.5-7b cut to 8 layers
+# (phase 12's fit cut: its train step's state is 36.6 GB, and the remat
+# check holds one step's result beside the other's) and mamba2-2.7b cut to
+# 8 (its 64 would take 2 x 37.8 GB); whisper-base whole.  Seq x batch:
+# codeqwen's and mamba2's 1024 x 2; whisper-base's 448 (its decoder's
+# positions) x 2 with its 1500 frames
+CELL_RUN = dict(seq=1024, batch=2)
+CELL_LAYERS = 8
+CELL_ENCDEC_TOKENS = 448
+CELL_BF16 = ops.TOLERANCE_TIERS["flash_attention_bf16"]
+
+
+def branch_rtol(cfg) -> float:
+    """A decode step's logits bound against the forward: the bf16 tier's
+    rtol for each residual branch and the head, adding as a random walk
+    (``serve_logit_rtol``'s rule at ``cfg``'s own depth: 2L + 1, an enc-dec
+    decoder's 3L + 1)."""
+    n = cfg.decoder_layers or cfg.num_layers
+    return CELL_BF16["rtol"] * math.sqrt(
+        (3 * n if cfg.is_encdec else 2 * cfg.num_layers) + 1)
+
+
+def rows_within(a: torch.Tensor, b: torch.Tensor, rtol: float) -> tuple:
+    """Whether each row's max |a - b| is within ``rtol`` of its max |b|
+    (plus the bf16 tier's atol), and the largest such ratio."""
+    a, b = a.float().reshape(-1, a.shape[-1]), b.float().reshape(
+        -1, b.shape[-1])
+    err = (a - b).abs().amax(-1)
+    ratio = err / (rtol * b.abs().amax(-1) + CELL_BF16["atol"])
+    return bool((ratio <= 1).all()), float(ratio.max())
+
+
+def cell_train_launches(cfg, n_leaves: int, remat: bool,
+                        frames: int = 0, tokens: int = 0) -> dict:
+    """A train cell's launches: one forward's (a decoder-only config's as
+    ``launcher_launches`` counts them, an enc-dec config's
+    ``forward_launches``: its ``frames`` != ``tokens``), its blocks' again
+    under remat (the recompute; the final norm and an enc-dec
+    ``enc_norm`` run outside the checkpointed blocks), one fused AdamW a
+    parameter leaf."""
+    if cfg.is_encdec:
+        want = dict(forward_launches(cfg, frames, tokens),
+                    fused_adam=n_leaves)
+    else:
+        want = launcher_launches(cfg, n_leaves, 1)
+    if remat:
+        outside = 2 if cfg.is_encdec else 1
+        want = {k: v if k == "fused_adam" else 2 * v - outside
+                if k == "rmsnorm" else 2 * v for k, v in want.items()}
+    return want
+
+
+def decode_launches(cfg) -> dict:
+    """One decode step's launches: every norm's rmsnorm, no flash or SSD
+    launch (attention over the cache and the SSM recurrence are plain)."""
+    want = {k: 0 for k in _build.LAUNCHES}
+    n = cfg.decoder_layers or cfg.num_layers
+    want["rmsnorm"] = (3 * n if cfg.is_encdec else 2 * cfg.num_layers) + 1
+    return want
+
+
+def bits_digest(tree) -> list:
+    """Each leaf's bits summed, plain and weighted by position (int64 on
+    the card): a witness that two draws of a tree are the same bits."""
+    out = []
+    for _, t in leaves_with_paths(tree):
+        v = t.detach().reshape(-1)
+        bits = v.view(torch.int16 if v.element_size() == 2 else torch.int32
+                      ).to(torch.int64)
+        out.append((int(bits.sum()), int((bits * torch.arange(
+            1, bits.numel() + 1, device=bits.device)).sum())))
+    return out
+
+
+def cell_batch(cfg, seq: int, batch: int, seed: int) -> dict:
+    """Seeded int32 tokens (labels the same) and, for an enc-dec config,
+    its frames, on the card."""
+    rng = np.random.default_rng(seed)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(batch, seq))
+                          .astype(np.int32), device="cuda")
+    out = {"tokens": tok, "labels": tok}
+    if cfg.is_encdec:
+        out["frames"] = torch.as_tensor(rng.standard_normal(
+            (batch, cfg.max_source_positions, cfg.d_model)).astype(
+            np.float32), device="cuda").to(cfg.torch_dtype)
+    return out
+
+
+@contextlib.contextmanager
+def peak_before_adam():
+    """Yields a list that gets the peak device memory allocated up to the
+    first ``optim.adam.adam_update`` call (a step's forward and backward),
+    read at that call."""
+    seen, inner = [], adam_mod.adam_update
+
+    def adam(*a, **k):
+        torch.cuda.synchronize()
+        seen.append(torch.cuda.max_memory_allocated())
+        return inner(*a, **k)
+
+    adam_mod.adam_update = adam
+    try:
+        yield seen
+    finally:
+        adam_mod.adam_update = inner
+
+
+def cell_train_pair(name: str, cfg, seq: int, batch: int, card: str) -> tuple:
+    """``cfg``'s ``train_4k`` cell at ``seq`` x ``batch`` without remat,
+    then with it, each one step from the parameters of seed 0 on the card
+    and a fresh AdamW state: the loss and every parameter, mu, nu and
+    master bitwise equal (held), launches exact (held), peak device memory
+    of each above what was allocated before it, up to AdamW (the forward
+    and backward) and over the step.  The first step's result stays on the
+    card while the second runs (36.6 GB at codeqwen's 8 layers).  Returns
+    (launches by path, record)."""
+    mesh = production_mesh_shape(False)
+    b = cell_batch(cfg, seq, batch, seed=13)
+    frames = cfg.max_source_positions if cfg.is_encdec else 0
+    out, counts, rec = {}, {}, {}
+    for remat in (False, True):
+        cell = build_cell(cfg, "train_4k", seq, batch, mesh, remat=remat)
+        params = R.init_model(torch.Generator("cuda").manual_seed(0), cfg)
+        digest = bits_digest(params)
+        opt = adam_mod.init_opt_state(params, adam_mod.AdamConfig())
+        n_leaves = len(leaves_with_paths(params))
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        with peak_before_adam() as fwd_bwd:
+            t0 = time.perf_counter()
+            params, opt, loss = cell.fn(params, opt, b)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+        got = dict(_build.LAUNCHES)
+        want = cell_train_launches(cfg, n_leaves, remat, frames, seq)
+        tag = f"{name} train_4k cell ({'remat' if remat else 'no remat'})"
+        check(got == want, f"{tag}: launches {got} != {want}")
+        check(math.isfinite(float(loss)), f"{tag}: loss {float(loss)}")
+        counts[tag] = got
+        peak = torch.cuda.max_memory_allocated()
+        rec["remat" if remat else "no_remat"] = dict(
+            loss=float(loss), step_s=step_s, peak_GB=peak / 1e9,
+            allocated_before_GB=base / 1e9,
+            peak_GB_above_before=(peak - base) / 1e9,
+            fwd_bwd_peak_GB_above_before=(fwd_bwd[0] - base) / 1e9,
+            launches={k: v for k, v in got.items() if v})
+        out[remat] = ((params, opt["leaves"]), loss, digest)
+        del cell
+    (a, la, da), (c, lc, dc) = out[False], out[True]
+    check(da == dc, f"{name}: the two draws of the parameters differ")
+    diffs = [("/".join(map(str, p)), float((x.float() - y.float()).abs()
+                                           .max()))
+             for (p, x), (_, y) in zip(leaves_with_paths(a),
+                                       leaves_with_paths(c))
+             if not torch.equal(x, y)]
+    check(torch.equal(la, lc), f"{name}: remat loss {float(lc)!r} != "
+                               f"{float(la)!r} without")
+    check(not diffs, f"{name}: remat changed {len(diffs)} leaves: "
+                     f"{diffs[:5]}")
+    rec.update(params=sum(t.numel() for _, t in leaves_with_paths(a[0])),
+               leaves_compared=len(leaves_with_paths(a)), bitwise=True)
+    log(f"{name} train_4k cell, seq {seq} x batch {batch}: loss "
+        f"{float(la):.6f} with and without remat, bitwise; every one of "
+        f"{rec['leaves_compared']} parameter, mu, nu and master tensors "
+        f"bitwise; peak GB above what was allocated before the step (its "
+        f"parameters and AdamW state; the remat step's also the first "
+        f"step's result), forward and backward: no remat "
+        f"{rec['no_remat']['fwd_bwd_peak_GB_above_before']:.3f}, remat "
+        f"{rec['remat']['fwd_bwd_peak_GB_above_before']:.3f}; the whole "
+        f"step (AdamW's float32 gradient copies beside the gradients): "
+        f"{rec['no_remat']['peak_GB_above_before']:.3f} / "
+        f"{rec['remat']['peak_GB_above_before']:.3f}; absolute peak "
+        f"{rec['no_remat']['peak_GB']:.3f} / {rec['remat']['peak_GB']:.3f};"
+        f" step s "
+        f"{rec['no_remat']['step_s']:.3f} / {rec['remat']['step_s']:.3f} "
+        f"({card})")
+    del a, c, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, rec
+
+
+def cell_serving(name: str, cfg, seq: int, batch: int, card: str) -> tuple:
+    """``cfg``'s ``prefill_32k`` cell over a seeded prompt of ``seq``
+    tokens against the forward's last position (an enc-dec config's
+    ``encdec.decode`` over its encoder output), elementwise within the
+    bf16 tier; then its ``decode_32k`` cell's step at position seq - 1
+    after the prefill cell wrote the first seq - 1 tokens into its caches,
+    against the same logits within ``branch_rtol``.  Launches exact.
+    Returns (launches by path, record)."""
+    mesh = production_mesh_shape(False)
+    pre = build_cell(cfg, "prefill_32k", seq, batch, mesh)
+    dec = build_cell(cfg, "decode_32k", seq, batch, mesh)
+    params = R.init_model(torch.Generator("cuda").manual_seed(0), cfg)
+    b = cell_batch(cfg, seq, batch, seed=14)
+    tok = b["tokens"]
+    init = E.init_decoder_caches if cfg.is_encdec else T.init_caches
+
+    def zeros():
+        return init(cfg, batch, seq, "cuda")
+
+    extra = (b["frames"],) if cfg.is_encdec else ()
+    with torch.no_grad():
+        if cfg.is_encdec:
+            enc = E.encode(params, cfg, b["frames"])
+            full = E.decode(params, cfg, tok, enc)[0][:, -1]
+        else:
+            full = T.forward(params, cfg, tok)[0][:, -1]
+        counts = {}
+        _build.reset_launch_counts()
+        logits, _ = pre.fn(params, zeros(), tok, *extra)
+        counts[f"{name} prefill_32k cell"] = dict(_build.LAUNCHES)
+        ok_p, err_p = within(logits[:, 0], full, CELL_BF16)
+        _build.reset_launch_counts()
+        _, caches = pre.fn(params, zeros(), tok[:, :-1], *extra)
+        if cfg.is_encdec:
+            enc_args = (E.encode(params, cfg, b["frames"]),)
+        else:
+            enc_args = ()
+        counts[f"{name} prefill of seq - 1, encode, for the decode"] = \
+            dict(_build.LAUNCHES)
+        _build.reset_launch_counts()
+        step, _ = dec.fn(params, caches, tok[:, -1:], *enc_args,
+                         torch.tensor(seq - 1, dtype=torch.int32,
+                                      device="cuda"))
+        counts[f"{name} decode_32k cell"] = dict(_build.LAUNCHES)
+    rtol = branch_rtol(cfg)
+    ok_d, ratio_d = rows_within(step[:, 0], full, rtol)
+    frames = cfg.max_source_positions if cfg.is_encdec else 0
+    want_pre = forward_launches(cfg, frames, seq)
+    check(counts[f"{name} prefill_32k cell"] == want_pre,
+          f"{name} prefill cell: launches "
+          f"{counts[f'{name} prefill_32k cell']} != {want_pre}")
+    want_fill = forward_launches(cfg, frames, seq - 1)
+    if cfg.is_encdec:               # the decode's encoder output
+        n_enc = cfg.encoder_layers or cfg.num_layers
+        want_fill["rmsnorm"] += 2 * n_enc + 1
+        want_fill[serve_route(cfg, ATTN)] += n_enc
+    fill = counts[f"{name} prefill of seq - 1, encode, for the decode"]
+    check(fill == want_fill, f"{name} the decode's prefill: launches "
+                             f"{fill} != {want_fill}")
+    check(counts[f"{name} decode_32k cell"] == decode_launches(cfg),
+          f"{name} decode cell: launches {counts[f'{name} decode_32k cell']}"
+          f" != {decode_launches(cfg)}")
+    check(ok_p, f"{name} prefill cell: logits vs the forward's, max |diff| "
+                f"{err_p:.3e} beyond the bf16 tier")
+    check(ok_d, f"{name} decode cell: logits vs the forward's, a row's "
+                f"max |diff| {ratio_d:.3f} of its bound (rtol {rtol:.4f})")
+    log(f"{name} prefill_32k cell ({seq} x {batch}): logits max |diff| "
+        f"{err_p:.3e} vs the forward (bf16 tier, held); decode_32k cell at "
+        f"position {seq - 1}: worst row {ratio_d:.3f} of its bound (rtol "
+        f"{rtol:.4f}, held) ({card})")
+    rec = dict(prefill_max_abs_err=err_p, decode_row_ratio=ratio_d,
+               decode_rtol=rtol)
+    del params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, rec
+
+
+def placement_summary() -> dict:
+    """On the host: for each published config on both production meshes,
+    the parameter leaves the rules shard and the parameter bytes one rank
+    holds (each leaf's bytes over the product of its spec's axes)."""
+    out = {}
+    for arch in configs.ARCH_IDS:
+        cfg = configs.get_config(arch)
+        shapes = R.model_param_shapes(cfg)
+        leaves = leaves_with_paths(shapes)
+        total = sum(t.numel() * t.element_size() for _, t in leaves)
+        row = dict(leaves=len(leaves), param_bytes=total)
+        for multi in (False, True):
+            mesh = production_mesh_shape(multi)
+            specs = sharding.param_pspecs(cfg, mesh, shapes)
+            n_sharded, rank_bytes = 0, 0
+            for (_, t), (_, spec) in zip(leaves, sharding.spec_leaves(specs)):
+                split = math.prod(sharding.mesh_axis_size(mesh, e)
+                                  for e in spec)
+                n_sharded += split > 1
+                rank_bytes += t.numel() * t.element_size() // split
+            row["x".join(map(str, mesh.sizes))] = dict(
+                sharded_leaves=n_sharded, rank_param_bytes=rank_bytes)
+        out[cfg.name] = row
+    return out
+
+
+def phase_cells(card: str) -> tuple:
+    """Phase 13: the dry-run cells on the card (codeqwen1.5-7b and
+    mamba2-2.7b at their widths cut to ``CELL_LAYERS``, whisper-base
+    whole) and the placement summary on the host.  Returns (launches by
+    path, records, wall seconds)."""
+    t0 = time.perf_counter()
+    counts, recs = {}, {}
+    t = time.perf_counter()
+    recs["placements"] = placement_summary()
+    recs["placements_s"] = time.perf_counter() - t
+    log(json.dumps({"placements": recs["placements"]}))
+    dense = dataclasses.replace(codeqwen1p5_7b.config(),
+                                num_layers=CELL_LAYERS)
+    ssm = dataclasses.replace(mamba2_2p7b.config(), num_layers=CELL_LAYERS)
+    audio = whisper_base.config()
+    for name, cfg, seq, serve in (
+            (f"codeqwen1.5-7b ({CELL_LAYERS} layers)", dense,
+             CELL_RUN["seq"], True),
+            (f"mamba2-2.7b ({CELL_LAYERS} layers)", ssm, CELL_RUN["seq"],
+             False),
+            ("whisper-base", audio, CELL_ENCDEC_TOKENS, True)):
+        c, recs[name] = cell_train_pair(name, cfg, seq, CELL_RUN["batch"],
+                                        card)
+        counts.update(c)
+        if serve:
+            c, recs[name]["serving"] = cell_serving(
+                name, cfg, seq, CELL_RUN["batch"], card)
+            counts.update(c)
+    wall = time.perf_counter() - t0
+    log(f"phase 13 (dry-run cells): {wall:.1f} s")
+    return counts, recs, wall
+
+
 class PhaseClock:
     """Wall seconds from one ``mark`` to the next and, of them, the ring
     snapshot checks' (``snapshot_matches_device``), logged and kept by
@@ -5067,6 +5415,9 @@ def main() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
     paths.update(launcher_paths)
     clock.mark("phase 12 (launcher)")
+    cell_paths, cells, cells_s = phase_cells(card)
+    paths.update(cell_paths)
+    clock.mark("phase 13 (dry-run cells)")
     kernels = [dict(name=name, route="cuda", source=SOURCES[name][0],
                     replaces=SOURCES[name][1],
                     launches=sum(p[name] for p in paths.values()),
@@ -5114,6 +5465,7 @@ def main() -> None:
     log(json.dumps({"fuzz": fuzz_runs, "phase_s": fuzz_s}))
     log(json.dumps({"serving": serving, "phase_s": serve_s}))
     log(json.dumps({"launcher": launcher, "phase_s": launcher_s}))
+    log(json.dumps({"dryrun_cells": cells, "phase_s": cells_s}))
     log(json.dumps({"phases": clock.rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,8 @@ The smoke path is a thin wrapper over
 engine the elastic runs drive, so every family (enc-dec included:
 ``--arch whisper_base`` draws each request's frames) serves through one
 code path.  ``--dryrun`` (lowering the full config's
-serving cells on a production mesh) raises: the dry run is not ported.
+serving cells on a production mesh) raises: the cells are ported
+(``launch/steps.py``), the dry run's driver is not.
 """
 from __future__ import annotations
 

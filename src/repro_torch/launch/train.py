@@ -13,8 +13,10 @@ loss (``registry.make_train_loss``) forward and backward, and updates
 every parameter in place with the tree-level AdamW (``optim/adam.py``,
 the fused-AdamW kernel once a parameter on the card).  Every tree lives
 on the device: weights, gradients and the float32 master, mu and nu.
-``--dryrun`` (lowering the full config on a production mesh) raises: the
-dry run is the next slice (ROADMAP queue 1 item 7b).
+``--dryrun`` (lowering the full config on a production mesh) raises: its
+placement rules, production mesh and cells are ported
+(``parallel/sharding.py``, ``launch/mesh.py``, ``launch/steps.py``), its
+driver is not (ROADMAP queue 1 item 7b, second half).
 """
 from __future__ import annotations
 
@@ -28,8 +30,12 @@ from repro_torch.optim import adam as A
 from repro_torch.tree import leaves_with_paths, map_params
 
 DRYRUN_MESSAGE = ("--dryrun lowers the full config on a production mesh; "
-                  "the dry run is not ported yet (ROADMAP queue 1 item 7b, "
-                  "the dry-run slice)")
+                  "the dry run's driver (launch/dryrun.py, "
+                  "launch/hlo_analysis.py, a fake process group of 256 or "
+                  "512 ranks) is not ported yet: ROADMAP queue 1 item 7b, "
+                  "its second half (the placement rules, the production "
+                  "mesh and the cells' steps are: parallel/sharding.py, "
+                  "launch/mesh.py, launch/steps.py)")
 # the seed of the extra inputs' generator at a step: (9, step), as the
 # reference folds its key 9 with the step
 EXTRA_SEED = 9

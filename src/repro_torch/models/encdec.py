@@ -19,12 +19,18 @@ which the reference runs plain; aligned attention (the encoder's, and a
 prefill's self-attention) runs the flash kernel, bidirectional in the
 encoder; cross-attention (S != T) and decode steps over the cache are plain
 tensor code, as in the reference.  The reference ignores dropout here.
+
+Under ``remat`` (training) each encoder and decoder block runs under
+``torch.utils.checkpoint``, as the reference checkpoints its scan bodies:
+the recompute launches the same kernels on the same inputs, so the loss
+and gradients are those without remat, bit for bit.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from . import layers as L
@@ -71,18 +77,30 @@ def init_encdec_params(gen: torch.Generator,
     }
 
 
-def encode(params, cfg: ModelConfig, frames) -> torch.Tensor:
+def apply_encoder_block(p, cfg: ModelConfig, x, positions) -> torch.Tensor:
+    """One encoder block: bidirectional self-attention, the MLP; each a
+    pre-norm residual branch."""
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    a, _ = L.apply_attention(p["attn"], cfg, h, positions, causal=False)
+    x = x + a
+    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + L.apply_mlp(p["mlp"], cfg, h)
+
+
+def encode(params, cfg: ModelConfig, frames,
+           remat: bool = False) -> torch.Tensor:
     """frames: [B, T, d] precomputed frame embeddings (frontend stub) ->
-    the encoder output [B, T, d] in the model's dtype."""
+    the encoder output [B, T, d] in the model's dtype.  ``remat``
+    recomputes each block's forward in the backward."""
     B, T, _ = frames.shape
     x = frames.to(cfg.torch_dtype) + params["enc_pos"][None, :T, :]
     positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
     for p in params["encoder"]:
-        h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-        a, _ = L.apply_attention(p["attn"], cfg, h, positions, causal=False)
-        x = x + a
-        h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-        x = x + L.apply_mlp(p["mlp"], cfg, h)
+        if remat:
+            x = checkpoint(apply_encoder_block, p, cfg, x, positions,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = apply_encoder_block(p, cfg, x, positions)
     return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -115,13 +133,18 @@ def apply_decoder_block(p, cfg: ModelConfig, x, positions, enc_out,
 
 
 def decode(params, cfg: ModelConfig, tokens, enc_out, caches=None,
-           cache_index=None, rows=None, last_only: bool = False):
+           cache_index=None, rows=None, last_only: bool = False,
+           remat: bool = False):
     """tokens [B,S], enc_out [B,T,d] -> (logits [B,S,V], caches).  With
     ``caches`` (:func:`init_decoder_caches`) the self-attention keys are
     written at ``cache_index`` (0: a prefill; [B] positions: a decode
     step), in the batch rows ``rows`` (None: all), in place.
     ``last_only`` keeps the last position alone before the final norm and
-    head (a prefill samples from it; rows are independent there)."""
+    head (a prefill samples from it; rows are independent there).
+    ``remat`` (without caches) recomputes each block's forward in the
+    backward."""
+    if remat and caches is not None:
+        raise ValueError("remat is a training option: no caches")
     B, S = tokens.shape
     x = L.embed(params["embed"], tokens)
     offs = torch.arange(S, device=x.device)[None, :]
@@ -131,9 +154,15 @@ def decode(params, cfg: ModelConfig, tokens, enc_out, caches=None,
         positions = L.cache_positions(cache_index, B, x.device)[:, None] \
             + offs
     for i, p in enumerate(params["decoder"]):
-        x = apply_decoder_block(p, cfg, x, positions, enc_out,
-                                caches[i] if caches is not None else None,
-                                cache_index, rows)
+        if remat:
+            x = checkpoint(apply_decoder_block, p, cfg, x, positions,
+                           enc_out, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = apply_decoder_block(
+                p, cfg, x, positions, enc_out,
+                caches[i] if caches is not None else None, cache_index,
+                rows)
     if last_only:
         x = x[:, -1:]
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -151,13 +180,14 @@ def init_decoder_caches(cfg: ModelConfig, batch: int, max_len: int,
             for _ in range(_n_decoder(cfg))]
 
 
-def encdec_train_loss(params, cfg: ModelConfig, batch, rng_ctx=None):
+def encdec_train_loss(params, cfg: ModelConfig, batch, rng_ctx=None,
+                      remat: bool = False):
     """Next-token cross-entropy of ``batch["tokens"]`` given
     ``batch["frames"]``; ``rng_ctx`` is ignored, as the reference ignores
-    it (no dropout)."""
+    it (no dropout).  ``remat`` as in :func:`encode` and :func:`decode`."""
     del rng_ctx
-    enc_out = encode(params, cfg, batch["frames"])
-    logits, _ = decode(params, cfg, batch["tokens"], enc_out)
+    enc_out = encode(params, cfg, batch["frames"], remat=remat)
+    logits, _ = decode(params, cfg, batch["tokens"], enc_out, remat=remat)
     return softmax_xent(logits[:, :-1], batch["labels"][:, 1:])
 
 

@@ -1,9 +1,10 @@
 """Per-layer model API used by the VirtualCluster, mirroring
 ``repro.models.registry``: each physical layer is an independently owned
 dict of tensors that can migrate between pipeline stages.  Also the
-whole-model init (:func:`init_model`), the whole-model loss
-(:func:`make_train_loss`) and the serving hooks (:func:`serving_hooks`)
-the serving engine drives.
+whole-model init (:func:`init_model`) and its shapes on the meta device
+(:func:`model_param_shapes`), the whole-model loss (:func:`make_train_loss`,
+with or without remat) and the serving hooks (:func:`serving_hooks`) the
+serving engine drives.
 
 As in the reference, the cluster trains an enc-dec config's decoder stack
 of ``cfg.block_pattern()`` alone (plain decoder blocks) and a vlm config
@@ -79,17 +80,38 @@ def init_model(gen: torch.Generator, cfg: ModelConfig):
     return stem, layers, head
 
 
-def make_train_loss(cfg: ModelConfig):
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the meta device, so that the init
+    functions, which place every leaf on ``gen.device``, build meta
+    tensors: ``torch.randn(..., generator=<cpu>, device="meta")`` draws
+    nothing, and there is no meta generator to pass instead."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def model_param_shapes(cfg: ModelConfig):
+    """The tree :func:`init_model` builds, as meta tensors: every leaf's
+    shape and dtype, nothing allocated (the reference's
+    ``jax.eval_shape`` of its init)."""
+    return init_model(_MetaGenerator(), cfg)
+
+
+def make_train_loss(cfg: ModelConfig, remat: bool = False):
     """``loss_fn(params, batch, rng_ctx=None)`` of the whole model: the
     enc-dec loss (``batch["frames"]``, ``batch["tokens"]``,
     ``batch["labels"]``) or the decoder's (with ``batch["prefix_embeds"]``
-    when given)."""
+    when given).  ``remat`` recomputes each block's forward in the
+    backward (``torch.utils.checkpoint``), as the reference checkpoints
+    each block: the loss and gradients are the same bits."""
     if cfg.is_encdec:
         def loss_fn(params, batch, rng_ctx=None):
-            return E.encdec_train_loss(params, cfg, batch, rng_ctx)
+            return E.encdec_train_loss(params, cfg, batch, rng_ctx,
+                                       remat=remat)
     else:
         def loss_fn(params, batch, rng_ctx=None):
-            return T.train_loss(params, cfg, batch, rng_ctx)
+            return T.train_loss(params, cfg, batch, rng_ctx, remat=remat)
     return loss_fn
 
 

@@ -12,12 +12,22 @@ updated in place.
 Attention blocks are GQA or, under ``cfg.use_mla``, deepseek-v3's latent
 attention (``layers.apply_mla``), whose cache is the latent pair
 ``{"c_kv", "k_rope"}``.
+
+**Remat** (``forward(..., remat=True)``, training only): each block runs
+under ``torch.utils.checkpoint`` (non-reentrant), its activations
+recomputed in the backward, as the reference checkpoints ``apply_block``.
+The recompute launches the same kernels on the same inputs, and dropout is
+content-addressed (``RngCtx``), so it draws the same masks without the RNG
+state being stashed: the loss and gradients are those without remat, bit
+for bit.  ``cfg.seq_shard_acts`` is a no-op here, as the reference's hint
+is without a mesh in scope (no published config sets it).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .config import ATTN, ATTN_MOE, MAMBA, MAMBA_MOE, ModelConfig
 from . import layers as L
@@ -123,7 +133,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
 
 def forward(params, cfg: ModelConfig, tokens, *, rng_ctx=None,
             prefix_embeds=None, caches=None, cache_index=None, rows=None,
-            last_only: bool = False):
+            last_only: bool = False, remat: bool = False):
     """tokens: [B,S] -> (logits [B,P+S,V], caches, aux_loss), over the
     port's ``(stem, layers, head)``.  ``prefix_embeds`` [B,P,d]
     (precomputed modality embeddings, the vlm front-end stub) are
@@ -133,7 +143,10 @@ def forward(params, cfg: ModelConfig, tokens, *, rng_ctx=None,
     [B] positions: a decode step), in the rows ``rows`` (None: all), in
     place.  ``last_only`` keeps the last position alone before the final
     norm and head (a prefill samples from it; rows are independent
-    there)."""
+    there).  ``remat`` (without caches) recomputes each block's forward in
+    the backward."""
+    if remat and caches is not None:
+        raise ValueError("remat is a training option: no caches")
     stem, layers, head = params
     x = L.embed(stem["embed"], tokens)
     if prefix_embeds is not None:
@@ -150,9 +163,14 @@ def forward(params, cfg: ModelConfig, tokens, *, rng_ctx=None,
              for blk in list(pat) * rep]
     ctx = rng_ctx or L.RngCtx()
     for i, (blk, p) in enumerate(zip(types, layers)):
-        c = caches[i] if caches is not None else None
-        x, aux = apply_block(p, cfg, blk, x, positions, ctx, i, cache=c,
-                             cache_index=cache_index, rows=rows)
+        if remat:
+            x, aux = checkpoint(apply_block, p, cfg, blk, x, positions, ctx,
+                                i, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            c = caches[i] if caches is not None else None
+            x, aux = apply_block(p, cfg, blk, x, positions, ctx, i, cache=c,
+                                 cache_index=cache_index, rows=rows)
         aux_total = aux_total + aux
     if last_only:
         x = x[:, -1:]
@@ -162,6 +180,11 @@ def forward(params, cfg: ModelConfig, tokens, *, rng_ctx=None,
     w = stem["embed"]["embedding"].T if cfg.tie_embeddings \
         else head["head"]["w"]
     return L.lm_logits({"w": w}, x), caches, aux_total
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
+    """:func:`init_caches` on the meta device: shapes and dtypes only."""
+    return init_caches(cfg, batch, max_len, device="meta")
 
 
 def prefill(params, cfg: ModelConfig, tokens, caches, prefix_embeds=None):
@@ -186,13 +209,15 @@ def decode_step(params, cfg: ModelConfig, tokens, caches, cache_index,
     return logits[:, -1:, :], caches
 
 
-def train_loss(params, cfg: ModelConfig, batch, rng_ctx=None):
+def train_loss(params, cfg: ModelConfig, batch, rng_ctx=None,
+               remat: bool = False):
     """Next-token cross-entropy of ``batch["tokens"]`` plus the MoE aux
     loss; with ``batch["prefix_embeds"]`` [B,P,d] the P prefix positions'
-    logits are dropped, as the reference drops them."""
+    logits are dropped, as the reference drops them.  ``remat`` as in
+    :func:`forward`."""
     prefix = batch.get("prefix_embeds")
     logits, _, aux = forward(params, cfg, batch["tokens"], rng_ctx=rng_ctx,
-                             prefix_embeds=prefix)
+                             prefix_embeds=prefix, remat=remat)
     P = 0 if prefix is None else prefix.shape[1]
     tok_logits = logits[:, P:, :]
     return softmax_xent(tok_logits[:, :-1], batch["labels"][:, 1:]) + aux

@@ -90,6 +90,13 @@ def init_opt_state(params, cfg: AdamConfig) -> dict:
     return {"leaves": map_params(leaf, params), "step": 0}
 
 
+def opt_state_shapes(params_shapes, cfg: AdamConfig) -> dict:
+    """:func:`init_opt_state` of a meta parameter tree
+    (``registry.model_param_shapes``): the state's shapes and dtypes,
+    nothing allocated."""
+    return init_opt_state(params_shapes, cfg)
+
+
 def adam_update(params, grads, state, cfg: AdamConfig):
     """One AdamW step of every parameter, in place; returns (params, the
     state at ``step + 1``).  ``grads`` has the parameters' structure; a
