@@ -286,17 +286,25 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``encdec.decode``; launches exact; on the host, each published
    config's sharded parameter leaves and the parameter bytes a rank holds
    on both production meshes;
-14. a JSON line with every kernel's numbers (each record's ``shape`` names
+14. the dry run (``python -m repro_torch.launch.dryrun --arch
+   whisper_base --shape decode_32k --mesh single`` in a subprocess
+   started before the kernels' build (phase 2) and waited for after it:
+   the cell on meta DTensors over a fake process group of 256 ranks on
+   this machine's torch, on the host's cores alone): its artifact's
+   ``argument_size_in_bytes``, ``model_flops``, ``hlo_flops_per_device``
+   and total collective bytes held to the values the CPU tests pin
+   (``DRYRUN_PIN``), no launch counter moved (the dry run raises if one
+   does), the child's seconds and the wait after the build logged;
+15. a JSON line with every kernel's numbers (each record's ``shape`` names
    the inputs its times were taken on; rmsnorm's ``launch_cost``: the
    kernel, the first port's kernel and ``F.rms_norm`` at [1500, 512],
    [1024, 2560], [4, 4096], [4096, 4096] and MLA's kv_norm view
    [1024, 512 of 576], bf16, by events, by the profiler's device time a
    launch, by queued device time a call and by the host's time a call,
    with the route each took; its ``route_sweep``), one with every
-   recovery's, one
-   with every scenario's, one with every fuzz run's, one with the serving
-   phase's, one with the launcher's, one with the dry-run cells', one
-   with each phase's wall seconds
+   recovery's, one with every scenario's, one with every fuzz run's, one
+   with the serving phase's, one with the launcher's, one with the dry-run
+   cells', one with the dry run's, one with each phase's wall seconds
    and, of them, the ring snapshot checks' (``PhaseClock``), then the
    result line.
 """
@@ -309,6 +317,7 @@ import gc
 import importlib.util
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -5180,6 +5189,70 @@ def placement_summary() -> dict:
     return out
 
 
+# phase 14: the dry run on this machine's torch, held to the artifact's
+# values on the CPU, as tests/test_torch_dryrun_ref.py pins them: two
+# fields that need no count, and the two counts (the local FLOPs and the
+# collective operand bytes), which this machine's torch could change
+DRYRUN_CELL = ("whisper_base", "decode_32k", "single")
+DRYRUN_PIN = {"argument_size_in_bytes": 220_857_252,
+              "model_flops": 28_094_758_912,
+              "hlo_flops_per_device": 8_540_463_104,
+              "collective_bytes.total": 217_879_424}
+
+
+def phase_dryrun_start(tmp: Path):
+    """Phase 14's start: ``python -m repro_torch.launch.dryrun`` on
+    ``DRYRUN_CELL`` in a subprocess (its artifact under ``tmp``), started
+    before the kernels' build so that the two overlap (the child runs on
+    the host's cores alone: meta tensors, no device, no kernel; the build
+    times nothing, so no phase's times are taken beside it).  Returns (the
+    process, its start time)."""
+    arch, shape, mesh = DRYRUN_CELL
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--out-dir", str(tmp)],
+        cwd=root, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True)
+    return proc, time.perf_counter()
+
+
+def phase_dryrun_finish(proc, t0: float, tmp: Path) -> tuple:
+    """Phase 14's end: wait for the dry run, hold its artifact to
+    ``DRYRUN_PIN``.  The child raises if any launch counter moves in it
+    (``dryrun.count_cell``), so its exit code 0 says none did.  Returns
+    (the artifact's summary, the child's wall seconds, the seconds waited
+    here)."""
+    tw = time.perf_counter()
+    try:
+        _, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    waited = time.perf_counter() - tw
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"dry run {DRYRUN_CELL} failed (rc "
+                                f"{proc.returncode}): {err[-3000:]}")
+    arch, shape, mesh = DRYRUN_CELL
+    art = json.loads((tmp / f"{arch}__{shape}__{mesh}.json").read_text())
+    check(art["status"] == "ok", f"dry run {DRYRUN_CELL}: {art}")
+    fields = {**art, **art["memory_analysis"], "collective_bytes.total":
+              art["collective_bytes"]["total"]}
+    for k, v in DRYRUN_PIN.items():
+        check(fields[k] == v, f"dry run {DRYRUN_CELL}: {k} {fields[k]} != "
+                              f"{v}")
+    rec = {"cell": "/".join(DRYRUN_CELL), "child_s": wall,
+           "waited_s": waited, "trace_s": art["trace_s"],
+           "collective_bytes": art["collective_bytes"],
+           "peak_live_bytes": art["memory_analysis"]["peak_live_bytes"],
+           "bottleneck": art["roofline"]["bottleneck"], **DRYRUN_PIN}
+    log(f"phase 14 (dry run {'/'.join(DRYRUN_CELL)}): the child {wall:.1f} "
+        f"s (trace {art['trace_s']} s), waited {waited:.1f} s after the "
+        f"build; {json.dumps(rec)}")
+    return rec, wall, waited
+
+
 def phase_cells(card: str) -> tuple:
     """Phase 13: the dry-run cells on the card (codeqwen1.5-7b and
     mamba2-2.7b at their widths cut to ``CELL_LAYERS``, whisper-base
@@ -5234,8 +5307,18 @@ class PhaseClock:
 def main() -> None:
     clock = PhaseClock()
     card = phase_device()
-    pipes = phase_build()
-    clock.mark("phases 1-2 (device, build, SASS)")
+    tmp = _build.BUILD_ROOT.parent / "chip_smoke_dryrun"
+    shutil.rmtree(tmp, ignore_errors=True)
+    dry = phase_dryrun_start(tmp)        # phase 14, beside the build
+    try:
+        pipes = phase_build()
+        clock.mark("phases 1-2 (device, build, SASS)")
+        dryrun, dryrun_s, _ = phase_dryrun_finish(*dry, tmp)
+    finally:
+        if dry[0].poll() is None:
+            dry[0].kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    clock.mark("phase 14 (dry run, after the build)")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     recs = {**kernel_rmsnorm(gen), **kernel_flash(gen)}
@@ -5466,6 +5549,7 @@ def main() -> None:
     log(json.dumps({"serving": serving, "phase_s": serve_s}))
     log(json.dumps({"launcher": launcher, "phase_s": launcher_s}))
     log(json.dumps({"dryrun_cells": cells, "phase_s": cells_s}))
+    log(json.dumps({"dryrun": dryrun, "phase_s": dryrun_s}))
     log(json.dumps({"phases": clock.rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,16 @@
 
 For a CUDA tensor a wrapper launches its hand-written CUDA kernel (and
 raises if it cannot); for a CPU tensor it runs the kernel's plain version in
-``ref.py``; any other device raises.  There is no fallback from the card to
-the plain version.  Launches are counted in ``_build.LAUNCHES``.
+``ref.py``; for a meta tensor, where nothing launches, the plain version
+too (the dry run, ``launch/dryrun.py``, counts it); any other device
+raises.  There is no fallback from the card to the plain version.
+Launches are counted in ``_build.LAUNCHES``.
+
+What the dry run counts of a kernel is therefore its plain version's work:
+flash attention's plain version makes the S x S scores, which the kernel
+never moves through memory, and the SSD scan's is ``ref.ssd_chunked``, the
+kernel's chunked algorithm (never the sequential oracle, whose per-token
+loop is not the kernel's work and would take minutes at 32k tokens).
 
 Each differentiable kernel sits in a ``torch.autograd.Function`` that mirrors
 the reference's ``jax.custom_vjp`` (``repro/kernels/ops.py``): the forward
@@ -59,10 +67,11 @@ TOLERANCE_TIERS = {
 
 
 def on_card(t: torch.Tensor) -> bool:
-    """True: launch the kernel.  False: run the plain version (CPU only)."""
+    """True: launch the kernel.  False: run the plain version (CPU and
+    meta only)."""
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
@@ -121,6 +130,9 @@ class _SSDScan(torch.autograd.Function):
                 y, state = ssd_scan_cuda(x, dt, A, B, C, chunk, True)
             else:
                 y, state = ssd_scan_cuda(x, dt, A, B, C, chunk), None
+        elif x.device.type == "meta":
+            y, state = ref.ssd_chunked(x, dt, A, B, C, chunk)
+            state = state if final_state else None
         else:
             rep = x.shape[2] // B.shape[2]
             y, state = ref.ssd_reference(

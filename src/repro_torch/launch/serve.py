@@ -8,9 +8,14 @@ The smoke path is a thin wrapper over
 :func:`repro_torch.serving.offline_generate` — the same continuous-batching
 engine the elastic runs drive, so every family (enc-dec included:
 ``--arch whisper_base`` draws each request's frames) serves through one
-code path.  ``--dryrun`` (lowering the full config's
-serving cells on a production mesh) raises: the cells are ported
-(``launch/steps.py``), the dry run's driver is not.
+code path.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1p5_7b \
+        --dryrun [--shape decode_32k] [--multi-pod]
+
+``--dryrun`` runs the full config's serving cell ``--shape`` on meta
+DTensors over a fake process group of the production mesh
+(``python -m repro_torch.launch.dryrun``) and writes its artifact.
 """
 from __future__ import annotations
 
@@ -58,12 +63,19 @@ def main(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--dryrun", action="store_true")
+    ap.add_argument("--shape", default="decode_32k",
+                    choices=["prefill_32k", "decode_32k", "long_500k"])
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--out-dir", default=None,
+                    help="--dryrun's artifact directory (default "
+                         "artifacts/dryrun_torch/)")
     add_generation_args(ap)
     args = ap.parse_args(argv)
 
     if args.dryrun:
-        from repro_torch.launch.train import DRYRUN_MESSAGE
-        raise NotImplementedError(DRYRUN_MESSAGE)
+        from repro_torch.launch.train import run_dryrun
+        raise SystemExit(run_dryrun(args.arch, args.shape, args.multi_pod,
+                                    args.out_dir))
     return run_smoke(args.arch, args)
 
 

@@ -27,6 +27,7 @@ from repro_torch.models import registry as R
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adam import AdamConfig, opt_state_shapes
+from repro_torch.parallel import dtensor as DT
 from repro_torch.parallel import sharding as S
 from repro_torch.parallel.sharding import Spec
 from repro_torch.tree import leaves_with_paths
@@ -84,7 +85,7 @@ def build_cell(cfg: ModelConfig, shape_name: str, seq: int, batch: int,
         opt_sh = opt_state_shapes(params_sh, adam)
         pspec_opt = _opt_pspecs_like(pspec_params)
         pspec_batch = S.batch_pspecs(cfg, mesh, batch_sh)
-        loss_fn = R.make_train_loss(cfg, remat=remat)
+        loss_fn = _gathered(R.make_train_loss(cfg, remat=remat), mesh)
 
         def train_step(params, opt_state, batch_):
             leaves = [t for _, t in leaves_with_paths(params)]
@@ -108,11 +109,12 @@ def build_cell(cfg: ModelConfig, shape_name: str, seq: int, batch: int,
     if cfg.is_encdec:
         return _encdec_serving_cell(cfg, kind, seq, batch, mesh,
                                     params_sh, pspec_params)
+    dp = S.dp_axes(mesh)
     caches_sh = T.cache_shapes(cfg, batch, seq)
     pspec_caches = S.cache_pspecs(cfg, mesh, caches_sh)
     if kind == "prefill":
         def prefill_step(params, caches, tokens):
-            return T.prefill(params, cfg, tokens, caches)
+            return T.prefill(DT.gather_axes(params, dp), cfg, tokens, caches)
 
         return Cell("prefill", prefill_step,
                     (params_sh, caches_sh, _meta((batch, seq), torch.int32)),
@@ -122,7 +124,8 @@ def build_cell(cfg: ModelConfig, shape_name: str, seq: int, batch: int,
                     donate=(1,))
 
     def decode_step(params, caches, tokens, index):
-        return T.decode_step(params, cfg, tokens, caches, index)
+        return T.decode_step(DT.gather_axes(params, dp), cfg, tokens, caches,
+                             index)
 
     return Cell("decode", decode_step,
                 (params_sh, caches_sh, _meta((batch, 1), torch.int32),
@@ -135,6 +138,7 @@ def build_cell(cfg: ModelConfig, shape_name: str, seq: int, batch: int,
 
 def _encdec_serving_cell(cfg, kind, seq, batch, mesh, params_sh,
                          pspec_params) -> Cell:
+    dp = S.dp_axes(mesh)
     caches_sh = E.init_decoder_caches(cfg, batch, seq, device="meta")
     pspec_caches = S.cache_pspecs(cfg, mesh, caches_sh)
     enc_sh = _meta((batch, cfg.max_source_positions, cfg.d_model),
@@ -142,6 +146,7 @@ def _encdec_serving_cell(cfg, kind, seq, batch, mesh, params_sh,
     enc_spec = S._spec(mesh, tuple(enc_sh.shape), S.dp_axes(mesh), None, None)
     if kind == "prefill":
         def prefill_step(params, caches, tokens, frames):
+            params = DT.gather_axes(params, dp)
             enc = E.encode(params, cfg, frames)
             logits, caches = E.decode(params, cfg, tokens, enc,
                                       caches=caches, cache_index=0,
@@ -159,8 +164,8 @@ def _encdec_serving_cell(cfg, kind, seq, batch, mesh, params_sh,
                     (Spec(), pspec_caches), donate=(1,))
 
     def decode_step(params, caches, tokens, enc_out, index):
-        return E.encdec_decode_step(params, cfg, tokens, enc_out, caches,
-                                    index)
+        return E.encdec_decode_step(DT.gather_axes(params, dp), cfg, tokens,
+                                    enc_out, caches, index)
 
     return Cell("decode", decode_step,
                 (params_sh, caches_sh, _meta((batch, 1), torch.int32), enc_sh,
@@ -169,6 +174,19 @@ def _encdec_serving_cell(cfg, kind, seq, batch, mesh, params_sh,
                  S._spec(mesh, (batch, 1), S.dp_axes(mesh), None),
                  enc_spec, Spec()),
                 (Spec(), pspec_caches), donate=(1,))
+
+
+def _gathered(loss_fn, mesh):
+    """``loss_fn`` on the parameters with their data-parallel shards
+    gathered (``parallel.dtensor.gather_axes``: the FSDP all-gather, and
+    the gradients' reduce-scatter in the backward), the same tree for
+    plain tensors."""
+    dp = S.dp_axes(mesh)
+
+    def fn(params, batch, rng_ctx=None):
+        return loss_fn(DT.gather_axes(params, dp), batch, rng_ctx)
+
+    return fn
 
 
 def _opt_pspecs_like(pspec_params):

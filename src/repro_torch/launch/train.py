@@ -13,10 +13,14 @@ loss (``registry.make_train_loss``) forward and backward, and updates
 every parameter in place with the tree-level AdamW (``optim/adam.py``,
 the fused-AdamW kernel once a parameter on the card).  Every tree lives
 on the device: weights, gradients and the float32 master, mu and nu.
-``--dryrun`` (lowering the full config on a production mesh) raises: its
-placement rules, production mesh and cells are ported
-(``parallel/sharding.py``, ``launch/mesh.py``, ``launch/steps.py``), its
-driver is not (ROADMAP queue 1 item 7b, second half).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_405b \
+        --dryrun [--multi-pod]
+
+``--dryrun`` runs the full config's ``train_4k`` cell on meta DTensors
+over a fake process group of the production mesh
+(``python -m repro_torch.launch.dryrun``, as the reference calls its dry
+run) and writes its artifact (``artifacts/dryrun_torch/``).
 """
 from __future__ import annotations
 
@@ -29,13 +33,6 @@ import torch
 from repro_torch.optim import adam as A
 from repro_torch.tree import leaves_with_paths, map_params
 
-DRYRUN_MESSAGE = ("--dryrun lowers the full config on a production mesh; "
-                  "the dry run's driver (launch/dryrun.py, "
-                  "launch/hlo_analysis.py, a fake process group of 256 or "
-                  "512 ranks) is not ported yet: ROADMAP queue 1 item 7b, "
-                  "its second half (the placement rules, the production "
-                  "mesh and the cells' steps are: parallel/sharding.py, "
-                  "launch/mesh.py, launch/steps.py)")
 # the seed of the extra inputs' generator at a step: (9, step), as the
 # reference folds its key 9 with the step
 EXTRA_SEED = 9
@@ -139,14 +136,32 @@ def train(cfg, *, steps: int, seq: int, batch: int, device=None,
     return losses
 
 
+def run_dryrun(arch: str, shape: str, multi_pod: bool,
+               out_dir: Optional[str] = None) -> int:
+    """``python -m repro_torch.launch.dryrun`` on one cell of ``arch``
+    (the multi mesh under ``multi_pod``; its artifact in ``out_dir``, by
+    default the dry run's own) in a subprocess, as the reference's
+    launchers call theirs; returns its exit code."""
+    import subprocess
+    import sys
+    return subprocess.call(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "multi" if multi_pod else "single"]
+        + (["--out-dir", str(out_dir)] if out_dir else []))
+
+
 def main(argv=None) -> List[float]:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="train the reduced config")
     ap.add_argument("--dryrun", action="store_true",
-                    help="lower+compile the full config on the 16x16 mesh")
+                    help="count the full config's train_4k cell on meta "
+                         "DTensors over the 16x16 mesh")
     ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--out-dir", default=None,
+                    help="--dryrun's artifact directory (default "
+                         "artifacts/dryrun_torch/)")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--batch", type=int, default=4)
@@ -156,7 +171,8 @@ def main(argv=None) -> List[float]:
     args = ap.parse_args(argv)
 
     if args.dryrun:
-        raise NotImplementedError(DRYRUN_MESSAGE)
+        raise SystemExit(run_dryrun(args.arch, "train_4k", args.multi_pod,
+                                    args.out_dir))
     from repro_torch import configs
     cfg = configs.get_smoke_config(args.arch) if args.smoke else \
         configs.get_config(args.arch)

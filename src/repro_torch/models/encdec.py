@@ -32,6 +32,7 @@ from typing import Any, Dict, List
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.parallel import dtensor as DT
 from .config import ModelConfig
 from . import layers as L
 from .transformer import softmax_xent
@@ -82,9 +83,10 @@ def apply_encoder_block(p, cfg: ModelConfig, x, positions) -> torch.Tensor:
     pre-norm residual branch."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     a, _ = L.apply_attention(p["attn"], cfg, h, positions, causal=False)
-    x = x + a
+    x = x + DT.constrain_acts(a, cfg.seq_shard_acts)
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + L.apply_mlp(p["mlp"], cfg, h)
+    return x + DT.constrain_acts(L.apply_mlp(p["mlp"], cfg, h),
+                                 cfg.seq_shard_acts)
 
 
 def encode(params, cfg: ModelConfig, frames,
@@ -95,26 +97,26 @@ def encode(params, cfg: ModelConfig, frames,
     B, T, _ = frames.shape
     x = frames.to(cfg.torch_dtype) + params["enc_pos"][None, :T, :]
     positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
+    x = DT.constrain_acts(x, cfg.seq_shard_acts)
     for p in params["encoder"]:
         if remat:
             x = checkpoint(apply_encoder_block, p, cfg, x, positions,
                            use_reentrant=False, preserve_rng_state=False)
         else:
             x = apply_encoder_block(p, cfg, x, positions)
+        x = DT.constrain_acts(x, cfg.seq_shard_acts)
     return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
 def _cross_attention(p, cfg: ModelConfig, h, enc_out) -> torch.Tensor:
     """Non-causal attention of h [B,S,d] over the encoder output [B,T,d],
     K/V recomputed from it (no cache)."""
-    B, S, _ = h.shape
-    T = enc_out.shape[1]
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (h @ p["wq"]).reshape(B, S, H, hd)
-    k = (enc_out @ p["wk"]).reshape(B, T, Hkv, hd)
-    v = (enc_out @ p["wv"]).reshape(B, T, Hkv, hd)
+    q = DT.split_last(h @ p["wq"], H, hd)
+    k = DT.split_last(enc_out @ p["wk"], Hkv, hd)
+    v = DT.split_last(enc_out @ p["wv"], Hkv, hd)
     a = L._sdpa(q, k, v, causal=False)
-    return a.reshape(B, S, H * hd) @ p["wo"]
+    return DT.merge_heads(a) @ p["wo"]
 
 
 def apply_decoder_block(p, cfg: ModelConfig, x, positions, enc_out,
@@ -125,11 +127,13 @@ def apply_decoder_block(p, cfg: ModelConfig, x, positions, enc_out,
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     a, _ = L.apply_attention(p["attn"], cfg, h, positions, kv_cache=cache,
                              cache_index=cache_index, rows=rows)
-    x = x + a
+    x = x + DT.constrain_acts(a, cfg.seq_shard_acts)
     h = L.rmsnorm(p["lnx"], x, cfg.norm_eps)
-    x = x + _cross_attention(p["xattn"], cfg, h, enc_out)
+    x = x + DT.constrain_acts(_cross_attention(p["xattn"], cfg, h, enc_out),
+                              cfg.seq_shard_acts)
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + L.apply_mlp(p["mlp"], cfg, h)
+    return x + DT.constrain_acts(L.apply_mlp(p["mlp"], cfg, h),
+                                 cfg.seq_shard_acts)
 
 
 def decode(params, cfg: ModelConfig, tokens, enc_out, caches=None,
@@ -153,6 +157,7 @@ def decode(params, cfg: ModelConfig, tokens, enc_out, caches=None,
     else:
         positions = L.cache_positions(cache_index, B, x.device)[:, None] \
             + offs
+    x = DT.constrain_acts(x, cfg.seq_shard_acts)
     for i, p in enumerate(params["decoder"]):
         if remat:
             x = checkpoint(apply_decoder_block, p, cfg, x, positions,
@@ -163,6 +168,7 @@ def decode(params, cfg: ModelConfig, tokens, enc_out, caches=None,
                 p, cfg, x, positions, enc_out,
                 caches[i] if caches is not None else None, cache_index,
                 rows)
+        x = DT.constrain_acts(x, cfg.seq_shard_acts)
     if last_only:
         x = x[:, -1:]
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)

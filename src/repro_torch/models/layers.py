@@ -42,6 +42,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.threefry import fold_in
+from repro_torch.parallel import dtensor as DT
 from .config import ModelConfig
 
 
@@ -140,7 +141,9 @@ def _sdpa(q, k, v, causal: bool, q_offset=None):
     a KV cache (``q_offset``) and the enc-dec model's cross-attention
     (S != T) are :func:`_sdpa_plain`."""
     if q_offset is None and q.shape[1] == k.shape[1]:
-        return ops.flash_attention(q, k, v, causal=causal)
+        return DT.per_head_shard(
+            lambda q, k, v: ops.flash_attention(q, k, v, causal=causal), q,
+            (k, v))
     return _sdpa_plain(q, k, v, causal, q_offset)
 
 
@@ -162,7 +165,14 @@ def _sdpa_plain(q, k, v, causal: bool, q_offset=None):
     s + T - S (the lower triangle when S == T).  Not causal (the enc-dec
     model's cross-attention, S != T) there is no mask.  q·k in q's dtype
     (float32 accumulation, one rounding), then the softmax in float32 and
-    the probabilities in q's dtype, as the reference rounds."""
+    the probabilities in q's dtype, as the reference rounds.  On
+    ``DTensor``s (the dry run) each device attends with its rows and heads
+    (``parallel.dtensor.per_head_shard``; a cache split over its sequence
+    is gathered)."""
+    if DT.is_dtensor(q):
+        return DT.per_head_shard(
+            lambda q, k, v, off: _sdpa_plain(q, k, v, causal, off), q,
+            (k, v), ((q_offset, 0, None),))
     B, S, H, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     qr = q.reshape(B, S, Hkv, H // Hkv, hd)
@@ -249,10 +259,11 @@ def _attend(cfg: ModelConfig, q, k, v, causal: bool, q_offset=None,
 
 
 def is_prefill(cache_index) -> bool:
-    """True for the prefill's cache index: a Python (or 0-d) 0, the start
-    of every sequence; False for a decode step's per-row positions."""
-    if isinstance(cache_index, torch.Tensor):
-        return cache_index.dim() == 0 and int(cache_index) == 0
+    """True for the prefill's cache index, a Python 0, the start of every
+    sequence; False for a decode step's positions, a tensor ([B] per row,
+    or a 0-d one for every row: the decode cells' index).  Decided from
+    what the caller passes, never from a tensor's value, which a meta
+    tensor (the dry run) does not have."""
     return isinstance(cache_index, (int, np.integer)) and cache_index == 0
 
 
@@ -270,11 +281,11 @@ def apply_attention(params, cfg: ModelConfig, x, positions,
     and the cache, updated in place, is returned; ``rows`` ([n] batch rows,
     None = all) limits the writes to those rows, so that a batch may carry
     rows whose caches must not change (the engine's fixed-width decode)."""
-    B, S, d = x.shape
+    B = x.shape[0]
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(B, S, H, hd)
-    k = (x @ params["wk"]).reshape(B, S, Hkv, hd)
-    v = (x @ params["wv"]).reshape(B, S, Hkv, hd)
+    q = DT.split_last(x @ params["wq"], H, hd)
+    k = DT.split_last(x @ params["wk"], Hkv, hd)
+    v = DT.split_last(x @ params["wv"], Hkv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if kv_cache is not None:
@@ -286,12 +297,19 @@ def apply_attention(params, cfg: ModelConfig, x, positions,
     else:
         out = _attend(cfg, q, kv_cache["k"].to(q.dtype),
                       kv_cache["v"].to(q.dtype), causal, q_offset=idx)
-    return out.reshape(B, S, H * hd) @ params["wo"], kv_cache
+    return DT.merge_heads(out) @ params["wo"], kv_cache
 
 
 def _scatter_seq(cache, new, index, rows=None) -> None:
     """cache[b, index[b]:index[b]+S] = new[b] in place, for the batch rows
-    ``rows`` (None: all).  cache: [B,T,...]; new: [B,S,...]; index: [B]."""
+    ``rows`` (None: all).  cache: [B,T,...]; new: [B,S,...]; index: [B].
+    A ``DTensor`` cache (the dry run; every row) takes
+    ``parallel.dtensor.scatter_seq_``."""
+    if DT.is_dtensor(cache):
+        if rows is not None:
+            raise ValueError("rows= on a DTensor cache: no cell passes it")
+        DT.scatter_seq_(cache, new, index)
+        return
     B, S = new.shape[:2]
     r = torch.arange(B, device=new.device) if rows is None \
         else torch.as_tensor(rows, dtype=torch.int64, device=new.device)
@@ -361,8 +379,10 @@ def apply_mla(params, cfg: ModelConfig, x, positions,
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     r_kv = cfg.kv_lora_rank
     if cfg.q_lora_rank:
-        q = rmsnorm(params["q_norm"], x @ params["wq_a"], cfg.norm_eps) \
-            @ params["wq_b"]
+        # on DTensors (the dry run) the norm's row is split over ``model``
+        # with wq_a's columns: gathered first
+        q = rmsnorm(params["q_norm"], DT.gather_dim(x @ params["wq_a"], -1),
+                    cfg.norm_eps) @ params["wq_b"]
     else:
         q = x @ params["wq"]
     q = q.reshape(B, S, H, dn + dr)
@@ -383,20 +403,40 @@ def apply_mla(params, cfg: ModelConfig, x, positions,
             c_kv = kv_cache["c_kv"].to(x.dtype)
             k_rope = kv_cache["k_rope"].to(x.dtype)
 
-    kvb = params["wkv_b"].reshape(r_kv, H, dn + dv)
-    if cfg.mla_absorb and kv_cache is not None:
-        out = _mla_absorbed(q_nope, q_rope, c_kv, k_rope, kvb, dn,
-                            (dn + dr) ** -0.5, q_offset).to(x.dtype)
-        return out.reshape(B, S, H * dv) @ params["wo"], kv_cache
+    kvb = DT.split_last(params["wkv_b"], H, dn + dv)
+    cached = kv_cache is not None
 
+    def core(q_nope, q_rope, c_kv, k_rope, kvb, q_offset):
+        return _mla_core(cfg, q_nope, q_rope, c_kv, k_rope, kvb, q_offset,
+                         cached, x.dtype)
+
+    out = DT.per_head_shard(core, q_nope, (),
+                            ((q_rope, 0, 2), (c_kv, 0, None),
+                             (k_rope, 0, None), (kvb, None, 1),
+                             (q_offset, 0, None)))
+    return out.reshape(B, S, H * dv) @ params["wo"], kv_cache
+
+
+def _mla_core(cfg: ModelConfig, q_nope, q_rope, c_kv, k_rope, kvb,
+              q_offset, cached: bool, dtype):
+    """MLA's attention from its queries, latents and ``kvb`` [r, H,
+    dn + dv] -> [B, S, H, dv] in ``dtype``: the absorbed form under
+    ``cfg.mla_absorb`` with a cache, else the latents expanded to per-head
+    keys and values.  On ``DTensor``s (the dry run) :func:`apply_mla` runs
+    it on each device's rows and heads (a latent cache split over its
+    sequence gathered)."""
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    B, _, H, _ = q_nope.shape
+    if cfg.mla_absorb and cached:
+        return _mla_absorbed(q_nope, q_rope, c_kv, k_rope, kvb, dn,
+                             (dn + dr) ** -0.5, q_offset).to(dtype)
     # expand the latents to per-head keys and values
     k_nope = torch.einsum("btr,rhn->bthn", c_kv, kvb[..., :dn])
     v = torch.einsum("btr,rhn->bthn", c_kv, kvb[..., dn:])
     T = k_nope.shape[1]
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, T, H, dr)], dim=-1)
     qf = torch.cat([q_nope, q_rope], dim=-1)
-    out = _attend(cfg, qf, k, v, True, q_offset, plain=_sdpa_plain)
-    return out.reshape(B, S, H * dv) @ params["wo"], kv_cache
+    return _attend(cfg, qf, k, v, True, q_offset, plain=_sdpa_plain)
 
 
 # --------------------------------------------------------------------------
@@ -434,7 +474,7 @@ def init_embedding(gen, cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def embed(params, tokens):
-    return params["embedding"][tokens.long()]
+    return DT.embed_rows(params["embedding"], tokens.long())
 
 
 def init_lm_head(gen, cfg: ModelConfig) -> Dict[str, Any]:

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ssd_chunked  # noqa: F401  (re-export)
+from repro_torch.parallel import dtensor as DT
 from .config import ModelConfig
 from . import layers as L
 
@@ -67,7 +68,14 @@ def _split_proj(cfg: ModelConfig, zxbcdt):
 def ssd_decode_step(x, dt, A, B, C, state):
     """Single-token recurrent update, in float32.
     x: [b,1,h,p]; dt: [b,1,h]; B,C: [b,1,g,n]; state: [b,h,p,n].
-    Returns (y [b,1,h,p] in x's dtype, new_state [b,h,p,n] float32)."""
+    Returns (y [b,1,h,p] in x's dtype, new_state [b,h,p,n] float32).  On
+    ``DTensor``s (the dry run) each device updates its rows and heads
+    (``parallel.dtensor.per_head_shard``)."""
+    if DT.is_dtensor(x):
+        return DT.per_head_shard(
+            lambda x, B, C, dt, A, st: ssd_decode_step(x, dt, A, B, C, st),
+            x, (B, C), ((dt, 0, 2), (A, None, 0), (state, 0, 1)),
+            out_head_dims=(2, 1))
     h, g = x.shape[2], B.shape[2]
     Bh = B[:, 0].float().repeat_interleave(h // g, dim=1)      # [b,h,n]
     Ch = C[:, 0].float().repeat_interleave(h // g, dim=1)
@@ -143,7 +151,10 @@ def apply_mamba(params, cfg: ModelConfig, x, state: Optional[Dict] = None,
         Cv = x @ w[:, o3:o4]
         dt = x @ w[:, o4:]
     else:
-        z, xs, Bv, Cv, dt = _split_proj(cfg, x @ params["in_proj"])
+        # on DTensors the packed columns are gathered first: their split
+        # points do not fall on the ``model`` axis's blocks
+        z, xs, Bv, Cv, dt = _split_proj(
+            cfg, DT.constrain(x @ params["in_proj"], "dp", None, None))
     xBC = torch.cat([xs, Bv, Cv], dim=-1)
     xBC, conv_state = _causal_conv(
         xBC, params["conv_w"], None if state is None else state["conv"])
@@ -157,7 +168,7 @@ def apply_mamba(params, cfg: ModelConfig, x, state: Optional[Dict] = None,
     dt = torch.logaddexp(dt_in, torch.zeros_like(dt_in))
     A = -torch.exp(params["A_log"])
     if state is None:
-        y, _ = ops.ssd_scan(xs, dt, A, Bv, Cv, chunk=cfg.ssm_chunk)
+        y, _ = _ssd_scan(xs, dt, A, Bv, Cv, cfg.ssm_chunk)
     else:
         if S == 1:
             y, ssm_state = ssd_decode_step(xs, dt, A, Bv, Cv, state["ssm"])
@@ -184,6 +195,14 @@ def _prefill_scan(xs, dt, A, Bv, Cv, chunk: int):
         dt = F.pad(dt, (0, 0, 0, pad))
         Bv = F.pad(Bv, (0, 0, 0, 0, 0, pad))
         Cv = F.pad(Cv, (0, 0, 0, 0, 0, pad))
-    y, state = ops.ssd_scan(xs, dt, A, Bv, Cv, chunk=chunk,
-                            return_final_state=True)
+    y, state = _ssd_scan(xs, dt, A, Bv, Cv, chunk, final_state=True)
     return y[:, :S], state
+
+
+def _ssd_scan(xs, dt, A, Bv, Cv, chunk: int, final_state: bool = False):
+    """``ops.ssd_scan``; on ``DTensor``s (the dry run) each device scans
+    its rows and heads (``parallel.dtensor.per_head_shard``)."""
+    return DT.per_head_shard(
+        lambda x, B, C, dt, A: ops.ssd_scan(
+            x, dt, A, B, C, chunk=chunk, return_final_state=final_state),
+        xs, (Bv, Cv), ((dt, 0, 2), (A, None, 0)), out_head_dims=(2, 1))

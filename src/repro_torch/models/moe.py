@@ -31,6 +31,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import dtensor as DT
 from .config import ModelConfig
 from .layers import _dense
 
@@ -166,8 +167,12 @@ def apply_moe(params, cfg: ModelConfig, x: torch.Tensor,
     from ``len(rows) * S``; row dispatch routes every row, each on its own,
     and keeps the live ones), the aux loss is theirs and the other rows'
     output is zero."""
+    if DT.is_dtensor(x):
+        if rows is not None:
+            raise ValueError("rows= on DTensors: no dry-run cell passes it")
+        return _apply_moe_sharded(params, cfg, x)
     B, S, d = x.shape
-    E, K = cfg.num_experts, cfg.top_k
+    E = cfg.num_experts
     xt = x.reshape(B * S, d)
     logits = (xt.to(torch.float32) @ params["router"]).reshape(B, S, E)
     if cfg.moe_row_dispatch:
@@ -183,16 +188,8 @@ def apply_moe(params, cfg: ModelConfig, x: torch.Tensor,
         sel = logits if rows is None else logits[rows]
         r = route(cfg, sel.reshape(1, n, E), cap, layout_cap)
         aux = _aux_loss(cfg, r["probs"], r["gate_idx"])
-    x_rep = xg.reshape(G * n, 1, d).expand(G * n, K, d).reshape(-1, d)
-    buckets = _Gather.apply(x_rep, r["src"], r["dst"])
-    out_b = _experts(params, cfg, buckets.reshape(E, G * layout_cap, d))
-    got = _Gather.apply(out_b.reshape(-1, d), r["dst"], r["src"]) \
-        .reshape(G * n, K, d)
-    w = r["gate"].reshape(G * n, K).to(x.dtype)
-    out = got[:, 0] * w[:, :1]
-    for k in range(1, K):
-        out = out + got[:, k] * w[:, k:k + 1]
-    out = out.reshape(G * n // S, S, d)
+    out = _dispatch(params, cfg, xg, r, G * n, G * layout_cap) \
+        .reshape(G * n // S, S, d)
     shared = _shared(params["shared"], cfg, xt).reshape(B, S, d) \
         if cfg.num_shared_experts else None
     if rows is None:
@@ -202,3 +199,66 @@ def apply_moe(params, cfg: ModelConfig, x: torch.Tensor,
     full = torch.zeros_like(x)
     full[rows] = out if shared is None else out + shared[rows]
     return full, aux
+
+
+def _dispatch(experts, cfg: ModelConfig, xg, r, tokens: int, places: int,
+              e0: int = 0):
+    """The ``tokens`` rows of ``xg`` through their routed experts (``r``
+    from :func:`route`, ``places`` bucket places an expert): buckets by
+    gathers, the experts of ``experts`` (all of them, or one device's block
+    starting at expert ``e0``, the others' outputs zero) on theirs, the
+    pairs combined in k order.  -> [tokens, d]."""
+    d = xg.shape[-1]
+    E, K = cfg.num_experts, cfg.top_k
+    x_rep = xg.reshape(tokens, 1, d).expand(tokens, K, d).reshape(-1, d)
+    buckets = _Gather.apply(x_rep, r["src"], r["dst"]).reshape(E, places, d)
+    El = experts["wg"].shape[0]
+    out_b = _experts(experts, cfg, buckets[e0:e0 + El])
+    if El < E:
+        out_b = torch.cat([out_b.new_zeros((e0, places, d)), out_b,
+                           out_b.new_zeros((E - e0 - El, places, d))])
+    got = _Gather.apply(out_b.reshape(-1, d), r["dst"], r["src"]) \
+        .reshape(tokens, K, d)
+    w = r["gate"].reshape(tokens, K).to(xg.dtype)
+    out = got[:, 0] * w[:, :1]
+    for k in range(1, K):
+        out = out + got[:, k] * w[:, k:k + 1]
+    return out
+
+
+def _apply_moe_sharded(params, cfg: ModelConfig, x):
+    """:func:`apply_moe` on ``DTensor``s (the dry run), one device's share:
+    it routes its own tokens (x's rows, split over the data-parallel axes;
+    ``cap`` from its tokens), fills the buckets of the experts it holds
+    (the expert dim split over ``model``) and runs them, and the ``model``
+    axis sums the experts' outputs (a partial sum, reduced where the
+    block's output joins the stream).  Expert parallelism without an
+    all-to-all: the tokens are replicated over ``model``, as the
+    tensor-parallel layout holds them.  The shared experts run
+    tensor-parallel.  The aux loss is each device's, averaged over the
+    data-parallel axes."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = x.device_mesh
+    x = DT.constrain(x, "dp", None, None)
+    xl = x.to_local()
+    B, S, d = xl.shape
+    E = cfg.num_experts
+    router = DT.constrain(params["router"], None, None).to_local()
+    logits = (xl.reshape(B * S, d).to(torch.float32) @ router) \
+        .reshape(B, S, E)
+    G, n = (B, S) if cfg.moe_row_dispatch else (1, B * S)
+    cap = capacity(n, cfg)
+    r = route(cfg, logits.reshape(G, n, E), cap, cap)
+    aux = _aux_loss(cfg, r["probs"], r["gate_idx"])
+    local = {k: params[k].to_local() for k in ("wg", "wu", "wo")}
+    e0 = DT.block_start_of(params["wg"], 0, local["wg"].shape[0])
+    out = _dispatch(local, cfg, xl, r, G * n, G * cap, e0).reshape(B, S, d)
+    if cfg.num_shared_experts:
+        sp = {k: v.to_local() for k, v in params["shared"].items()}
+        out = out + _shared(sp, cfg, xl.reshape(B * S, d)).reshape(B, S, d)
+    names = mesh.mesh_dim_names
+    pl = [p if p.is_shard(0) else Partial() for p in x.placements]
+    aux_pl = [Partial("avg") if names[i] in ("pod", "data") else Replicate()
+              for i in range(mesh.ndim)]
+    return (DTensor.from_local(out, mesh, pl, run_check=False),
+            DTensor.from_local(aux, mesh, aux_pl, run_check=False))

@@ -19,8 +19,16 @@ recomputed in the backward, as the reference checkpoints ``apply_block``.
 The recompute launches the same kernels on the same inputs, and dropout is
 content-addressed (``RngCtx``), so it draws the same masks without the RNG
 state being stashed: the loss and gradients are those without remat, bit
-for bit.  ``cfg.seq_shard_acts`` is a no-op here, as the reference's hint
-is without a mesh in scope (no published config sets it).
+for bit.
+
+**On meta DTensors** (the dry run, ``launch/dryrun.py``) the residual
+stream, and each block's branches where they join it, are constrained
+(``parallel.dtensor.constrain_acts``): batch over the data-parallel axes
+and, under ``cfg.seq_shard_acts``, the sequence over ``model`` (the
+reference's ``_maybe_seq_shard``), else replicated there, the branches'
+tensor-parallel partial sums reduced on the way.  On plain tensors, the
+CPU's and the card's, it is a no-op, as the reference's hint is without a
+mesh in scope (no published config sets it).
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from typing import Any, Dict, List
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.parallel import dtensor as DT
 from .config import ATTN, ATTN_MOE, MAMBA, MAMBA_MOE, ModelConfig
 from . import layers as L
 from . import mamba as M
@@ -90,7 +99,8 @@ def apply_block(params, cfg: ModelConfig, blk: str, x, positions,
     else:
         a, _ = M.apply_mamba(params["mamba"], cfg, h, state=cache,
                              cache_index=cache_index, rows=rows)
-    x = x + L.dropout(a, cfg.dropout_rate, ctx, op_id=0)
+    x = x + L.dropout(DT.constrain_acts(a, cfg.seq_shard_acts),
+                      cfg.dropout_rate, ctx, op_id=0)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if _has_mlp(cfg, blk):
         h = L.rmsnorm(params["ln2"], x, cfg.norm_eps)
@@ -98,7 +108,8 @@ def apply_block(params, cfg: ModelConfig, blk: str, x, positions,
             m, aux = X.apply_moe(params["moe"], cfg, h, rows=rows)
         else:
             m = L.apply_mlp(params["mlp"], cfg, h)
-        x = x + L.dropout(m, cfg.dropout_rate, ctx, op_id=1)
+        x = x + L.dropout(DT.constrain_acts(m, cfg.seq_shard_acts),
+                          cfg.dropout_rate, ctx, op_id=1)
     return x, aux
 
 
@@ -151,6 +162,7 @@ def forward(params, cfg: ModelConfig, tokens, *, rng_ctx=None,
     x = L.embed(stem["embed"], tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    x = DT.constrain_acts(x, cfg.seq_shard_acts)
     B, S, _ = x.shape
     offs = torch.arange(S, device=x.device)[None, :]
     if cache_index is None:
@@ -171,6 +183,7 @@ def forward(params, cfg: ModelConfig, tokens, *, rng_ctx=None,
             c = caches[i] if caches is not None else None
             x, aux = apply_block(p, cfg, blk, x, positions, ctx, i, cache=c,
                                  cache_index=cache_index, rows=rows)
+        x = DT.constrain_acts(x, cfg.seq_shard_acts)
         aux_total = aux_total + aux
     if last_only:
         x = x[:, -1:]
@@ -226,7 +239,7 @@ def train_loss(params, cfg: ModelConfig, batch, rng_ctx=None,
 def softmax_xent(logits, labels, mask=None):
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0] - logz
+    ll = DT.take_last(logits, labels.long()) - logz
     if mask is None:
         return -torch.mean(ll)
     return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)

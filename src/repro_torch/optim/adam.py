@@ -33,6 +33,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.parallel import dtensor as DT
 from repro_torch.tree import at, leaves_with_paths, map_params
 
 
@@ -101,13 +102,23 @@ def adam_update(params, grads, state, cfg: AdamConfig):
     """One AdamW step of every parameter, in place; returns (params, the
     state at ``step + 1``).  ``grads`` has the parameters' structure; a
     ``None`` gradient (a parameter no loss term reads) is zero, as the
-    reference's gradient of such a leaf is.  Without a master copy the kernel updates a float32
-    copy of the parameter."""
+    reference's gradient of such a leaf is.  Without a master copy the
+    kernel updates a float32 copy of the parameter.  A ``DTensor``
+    parameter (the dry run) is updated shard by shard, on its local
+    tensors."""
     from repro_torch.kernels import ops
     step = state["step"] + 1
     with torch.no_grad():
         for path, p in leaves_with_paths(params):
             g, st = at(grads, path), at(state["leaves"], path)
+            if DT.is_dtensor(p):
+                # the dry run: each device updates its shard; a gradient
+                # is first brought to its parameter's placement (the
+                # reduce-scatter or all-reduce of data parallelism)
+                g = None if g is None else \
+                    g.redistribute(p.device_mesh, p.placements).to_local()
+                st = {k: v.to_local() for k, v in st.items()}
+                p = p.to_local()
             g = torch.zeros(p.numel(), dtype=torch.float32, device=p.device) \
                 if g is None else g.detach().reshape(-1).to(torch.float32) \
                 .contiguous()

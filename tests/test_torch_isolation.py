@@ -5,6 +5,7 @@ wrapper hands a CUDA tensor to its plain version."""
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -151,10 +152,24 @@ def test_serving_path_never_gives_a_cuda_tensor_to_the_plain_version(
     assert calls.count("rmsnorm") == 2 * (2 * 2 + 1)
 
 
-def test_other_devices_raise():
+def test_other_devices_raise(monkeypatch):
+    """Meta (the dry run), where nothing launches, takes the plain
+    version: no launch is counted and no kernel is reached.  A device
+    that is neither cpu, cuda nor meta still raises."""
+    def kernel(*a, **k):
+        raise AssertionError("kernel reached for a meta tensor")
+
+    monkeypatch.setattr(ops, "rmsnorm_cuda", kernel)
+    before = dict(_build.LAUNCHES)
     x = torch.zeros(2, 16, device="meta")
-    with pytest.raises(ValueError, match="meta"):
-        ops.rmsnorm(x, torch.ones(16, device="meta"))
+    y = ops.rmsnorm(x, torch.ones(16, device="meta"))
+    assert y.device.type == "meta" and y.shape == x.shape
+    assert dict(_build.LAUNCHES) == before
+    assert ops.on_card(x) is False
+    for dev in ("xpu", "mps", "hpu"):
+        t = types.SimpleNamespace(device=torch.device(dev))
+        with pytest.raises(ValueError, match=dev):
+            ops.on_card(t)
 
 
 def test_launch_counts_only_successful_launches(monkeypatch):

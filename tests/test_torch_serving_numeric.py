@@ -161,7 +161,7 @@ def test_migrated_slot_equals_its_source(models):
                 assert torch.equal(g[k], w[k])
 
 
-def test_offline_generate_and_launcher_smoke(capsys):
+def test_offline_generate_and_launcher_smoke(capsys, tmp_path):
     cfg = R.tiny_config("dense", **FAMILIES["dense"])
     out = S.offline_generate(cfg, batch=2, prompt_len=5, max_new_tokens=3,
                              seed=0, device="cpu")
@@ -173,8 +173,15 @@ def test_offline_generate_and_launcher_smoke(capsys):
     res = launch_serve.main(args)
     assert res["sequences"].shape == (2, 3)
     assert "generated 6 tokens" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="dry run"):
-        launch_serve.main(["--arch", "codeqwen1p5_7b", "--dryrun"])
+    # --dryrun runs the full config's decode_32k cell on meta DTensors
+    # (python -m repro_torch.launch.dryrun) and writes its artifact
+    out = tmp_path / "codeqwen1p5_7b__decode_32k__single.json"
+    with pytest.raises(SystemExit) as e:
+        launch_serve.main(["--arch", "codeqwen1p5_7b", "--dryrun",
+                           "--out-dir", str(tmp_path)])
+    assert e.value.code == 0
+    art = json.loads(out.read_text())
+    assert art["status"] == "ok" and art["kind"] == "decode"
 
 
 def _example():

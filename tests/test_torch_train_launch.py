@@ -11,6 +11,7 @@ Then ``make_batch`` against the reference's, and ``main``:
 a CPU run writing its checkpoints, ``--dryrun``, and the default device
 without a card.
 """
+import json
 import numpy as np
 import pytest
 
@@ -85,9 +86,19 @@ def test_main_trains_and_writes_checkpoints(tmp_path, capsys):
         == ["manifest.json", "opt.npz", "params.npz"]
 
 
-def test_dryrun_raises_naming_the_slice():
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        TR.main(["--arch", "llama3_405b", "--dryrun"])
+def test_dryrun_raises_naming_the_slice(tmp_path):
+    """``--dryrun`` no longer raises: it runs the full config's train_4k
+    cell through ``python -m repro_torch.launch.dryrun`` (on meta DTensors
+    over a fake process group of 256 ranks) and writes its artifact, here
+    in ``--out-dir``."""
+    out = tmp_path / "llama3_405b__train_4k__single.json"
+    with pytest.raises(SystemExit) as e:
+        TR.main(["--arch", "llama3_405b", "--dryrun", "--out-dir",
+                 str(tmp_path)])
+    assert e.value.code == 0
+    art = json.loads(out.read_text())
+    assert art["status"] == "ok" and art["chips"] == 256
+    assert art["kind"] == "train" and art["hlo_flops_per_device"] > 0
 
 
 def test_default_device_without_a_card_raises(monkeypatch):
