@@ -108,7 +108,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    float32 tiny twins at dropout 0.1 (dense under both ``rng_mode``s, ssm,
    and the dense recovery sequence), within the same bounds, with the
    dropout-free twins' launches and exactly 192 / 192 / 96 / 1280 of the
-   dropout kernel; the MoE family's float32 twins (moe at capacity factor
+   dropout kernel; beside the ssm recovery twin and the dense one at
+   dropout 0.1, a third cluster on the card on the seed path
+   (``fast_path=False``) from the same weights, held to the card's fast
+   cluster with ``==`` after every op (loss or record, every stage's
+   master, mu and nu and every shard, the parameters, the ring's CRCs and
+   the ring against its device shards, remap plans, tiers, layouts), its
+   launches the fast cluster's but fused AdamW, one a (stage, live rank)
+   a step (43 against 12); the MoE family's float32 twins (moe at capacity factor
    1.25, where tokens drop, moe with row dispatch, hybrid: attention,
    Mamba2 and Mamba2-MoE blocks on the 3xTF32 flash and CUDA-core SSD
    routes) and the moe recovery sequence at capacity factor 16, the CPU
@@ -158,7 +165,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    its total and peak device memory beside the record's modeled seconds;
 8. the float32 ssm path: mamba2-2.7b at its widths in float32, depth cut
    to 2 layers, for one step (cut from 2 for the MoE slice's time), every
-   SSD launch on the float32 tensor-core route;
+   SSD launch on the float32 tensor-core route; then its seed-path twin
+   (``fast_path=False``), built from the same weights before that step,
+   takes the step too: loss, every shard's master, mu and nu, the
+   parameters and the ring (CRCs, and against its device shards) equal
+   the fast step's with ``==``, one fused AdamW a (stage, rank), its step
+   and snapshot seconds printed beside the fast step's
+   (``phase_float32``);
 9. the scenario engine on the card (``repro_torch.scenarios``): the
    kernel corpus of ``kernels/check.py`` (flash GQA causal and
    bidirectional at head_dim 32 on the 3xTF32 route, rmsnorm, the SSD scan
@@ -246,7 +259,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    prefill with the prefix into a cache and 15 greedy decode steps held
    against the full forward with the prefix, every block in float32, and
    one ``train_loss`` with the prefix, forward and backward
-   (``phase_vlm_prefix``); then ``launch/serve.py --smoke`` (mamba2-2.7b
+   (``phase_vlm_prefix``); mamba2-2.7b at its widths cut to the logits
+   gate's 8 layers, in float32: one prompt of 1024 tokens prefilled whole
+   and as 600 + 424, the second part resumed from the carried state (the
+   plain chunked scan from ``initial_state``), the last logits and every
+   layer's SSM and conv states within 1e-4 of the tensor's max |value|,
+   launches exact (``resumed_prefill_gate``); then ``launch/serve.py --smoke`` (mamba2-2.7b
    and whisper-base) and ``examples/torch_serve.py``;
 12. the whole-model training launcher (``repro_torch.launch.train``):
    mamba2-2.7b at its published size (64 layers, 2.70 B params, bf16)
@@ -260,9 +278,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    the SSD or wgmma flash route L, fused AdamW once a distinct parameter),
    ms a step and an AdamW update, peak device memory; in mamba2's second
    step three parameters' AdamW update (the tied embedding, an in_proj, a
-   norm scale) redone by the plain version on the CPU from copies of their
-   gradients and pre-step state, held to the ``fused_adam`` tier (bitwise
-   printed); ``train`` on the dense, ssm and audio smoke configs (float32)
+   norm scale) redone by the plain version on the card from copies of
+   their gradients and pre-step state, held to the ``fused_adam`` tier
+   (bitwise printed); ``train`` on the dense, ssm and audio smoke configs (float32)
    on the card and on the CPU from the same weights, 3 steps, losses
    within 1e-5 relative, parameters within the bf16 twins' bound; and
    ``CheckpointManager`` on the card: a save without blocking while
@@ -302,8 +320,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    [1024, 512 of 576], bf16, by events, by the profiler's device time a
    launch, by queued device time a call and by the host's time a call,
    with the route each took; its ``route_sweep``), one with every
-   recovery's, one with every scenario's, one with every fuzz run's, one
-   with the serving phase's, one with the launcher's, one with the dry-run
+   recovery's, one with phase 8's seed-path step, one with every
+   scenario's, one with every fuzz run's, one with the serving phase's, one with the launcher's, one with the dry-run
    cells', one with the dry run's, one with each phase's wall seconds
    and, of them, the ring snapshot checks' (``PhaseClock``), then the
    result line.
@@ -593,6 +611,8 @@ SSM_F32_LAUNCHES = {"rmsnorm": 20, "flash_attention": 0, "fused_adam": 2,
                     "ssd_scan_sm90": 0, "flash_attention_tf32": 0,
                     "ssd_scan_sm90_f32": 8, "flash_attention_bf16_mma": 0,
                     "threefry_dropout": 0, "rmsnorm_rowblock": 0}
+# phase 8's seed-path step: one fused AdamW a (stage, rank), 2 x 2
+SEED_F32_ADAM = 4
 # exact launches over the 4 steps of phase 7: after a shrink each step is 2
 # items of batch 2, after the scale-out 4 items of batch 1
 RECOVERY_LAUNCHES = {"rmsnorm": 108, "flash_attention": 0, "fused_adam": 8,
@@ -2594,39 +2614,76 @@ def _twin_op(cl: VirtualCluster, op: tuple):
                                        freq=1.1))
 
 
+# seconds spent building and driving phase 4's seed-path twins so far
+# (building the cluster and ``seed_twin_op``, its checks included)
+seed_twin_s = [0.0]
+
+
 def phase_tiny_recovery_twin(family: str, dropout_rate: float = 0.0,
-                             rng_mode: str = "reshard", **cfg_kw) -> dict:
+                             rng_mode: str = "reshard", seed_twin=False,
+                             **cfg_kw) -> dict:
     """The tiny float32 cluster (dp=4, pp=2, global batch 16) on the card
     and on the CPU through ``TWIN_SEQUENCE``: records, remap plans,
     integrity tiers and layouts equal exactly, losses and state within the
     kernel-consistency bounds after every step; at ``dropout_rate`` under
     ``rng_mode`` (0.1 is the reference's elastic test configuration), the
-    config's other fields from ``cfg_kw``.  Returns the card's launch
-    counts."""
+    config's other fields from ``cfg_kw``.  ``seed_twin``: a third cluster
+    on the card on the seed path (``fast_path=False``) from the same
+    weights, held to the card's fast cluster bit for bit after every op
+    (``seed_twin_op``).  Returns the card fast cluster's launch counts."""
     cfg = tiny_config(family, num_layers=8 if family == "dense" else 4,
                       dropout_rate=dropout_rate, **cfg_kw)
     kw = dict(global_batch=16, num_micro=2, seq_len=16, rng_mode=rng_mode)
     cpu = VirtualCluster(cfg, 4, 2, device="cpu", **kw)
     init = params_to_numpy(cpu.stem, cpu.layer_params, cpu.head)
     gpu = VirtualCluster(cfg, 4, 2, device="cuda", init_params=init, **kw)
-    logs = {"cpu": [], "cuda": []}
-    tiers = {"cpu": [], "cuda": []}
-    for dev, cl in (("cpu", cpu), ("cuda", gpu)):
-        _pin_planner_clock(cl, logs[dev])
+    t0 = time.perf_counter()
+    seed = VirtualCluster(cfg, 4, 2, device="cuda", init_params=init,
+                          fast_path=False, **kw) if seed_twin else None
+    seed_twin_s[0] += time.perf_counter() - t0
+    logs = {"cpu": [], "cuda": [], "seed": []}
+    tiers = {"cpu": [], "cuda": [], "seed": []}
+    for dev, cl in (("cpu", cpu), ("cuda", gpu), ("seed", seed)):
+        if cl is not None:
+            _pin_planner_clock(cl, logs[dev])
     orig = SnapshotPool.verify_and_repair
     flips = []
+    seed_counts = collections.Counter()
+    seed_adam = 0
     _build.reset_launch_counts()
     try:
         with route_twin(flips):
             for k, op in enumerate(TWIN_SEQUENCE):
-                _recovery_twin_op(f"tiny {family} recovery twin op {k} {op}",
-                                  op, gpu, cpu, logs, tiers, orig)
+                where = f"tiny {family} recovery twin op {k} {op}"
+                out = _recovery_twin_op(where, op, gpu, cpu, logs, tiers,
+                                        orig)
+                if seed is not None:
+                    if op[0] == "train":
+                        seed_adam += sum(len(st.dp_ranks)
+                                         for st in seed.stages if st.total)
+                    t0 = time.perf_counter()
+                    seed_counts.update(seed_twin_op(where, op, out, seed,
+                                                    gpu, logs, tiers, orig))
+                    seed_twin_s[0] += time.perf_counter() - t0
     finally:
         SnapshotPool.verify_and_repair = orig
     log_flips(f"tiny {family} recovery twin", flips)
     check("rebuilt" in tiers["cuda"] and "rederived" in tiers["cuda"],
           f"tiny {family} recovery twin: tiers {tiers['cuda']}")
     counts = dict(_build.LAUNCHES)
+    if seed is not None:
+        # the same forward and backward launches as the fast cluster; one
+        # fused AdamW a (stage, live rank) a step where it has one a stage
+        want = {**counts, "fused_adam": seed_adam}
+        got = {k: seed_counts[k] for k in counts}
+        check(got == want, f"tiny {family} seed twin: launches {got} != "
+                           f"{want}")
+        log(f"tiny {family} seed twin (card, fast_path=False): "
+            f"{len(seed.recoveries)} recoveries, losses {seed.losses}: == "
+            f"the card's fast cluster after every op (state, parameters, "
+            f"ring, records, remap plans, tiers, layouts); launches {got} "
+            f"(fused_adam {seed_adam}, the fast cluster's "
+            f"{counts['fused_adam']})")
     log(f"tiny {family} recovery twin"
         f"{f' (dropout {dropout_rate} {rng_mode})' if dropout_rate else ''}: "
         f"{len(gpu.recoveries)} recoveries, "
@@ -2637,11 +2694,22 @@ def phase_tiny_recovery_twin(family: str, dropout_rate: float = 0.0,
     return counts
 
 
+def same_layout(a: VirtualCluster, b: VirtualCluster) -> bool:
+    """Equal layer assignments, stage DP groups and entries, per-rank
+    micro-batch sizes and gradient weights."""
+    return (a.layer_assignment == b.layer_assignment
+            and [s.dp_ranks for s in a.stages] == [s.dp_ranks for s in b.stages]
+            and [s.entries for s in a.stages] == [s.entries for s in b.stages]
+            and a.per_rank_mbs == b.per_rank_mbs
+            and a.grad_weights == b.grad_weights)
+
+
 def _recovery_twin_op(where: str, op: tuple, gpu, cpu, logs: dict,
-                      tiers: dict, verify) -> None:
+                      tiers: dict, verify):
     """One op of ``TWIN_SEQUENCE`` on the card, then on the CPU, each
     side's integrity tiers logged through ``verify`` (the original
-    ``SnapshotPool.verify_and_repair``), then held."""
+    ``SnapshotPool.verify_and_repair``), then held.  Returns the card's
+    result (a loss, a record or None)."""
     out = {}
     for dev, cl in (("cuda", gpu), ("cpu", cpu)):
         def logged(self, *a, _t=tiers[dev], **kk):
@@ -2663,14 +2731,7 @@ def _recovery_twin_op(where: str, op: tuple, gpu, cpu, logs: dict,
     else:
         check(out["cuda"] == out["cpu"],
               f"{where}: records {out['cuda']} vs {out['cpu']}")
-    check(gpu.layer_assignment == cpu.layer_assignment
-          and [s.dp_ranks for s in gpu.stages]
-          == [s.dp_ranks for s in cpu.stages]
-          and [s.entries for s in gpu.stages]
-          == [s.entries for s in cpu.stages]
-          and gpu.per_rank_mbs == cpu.per_rank_mbs
-          and gpu.grad_weights == cpu.grad_weights,
-          f"{where}: layouts differ")
+    check(same_layout(gpu, cpu), f"{where}: layouts differ")
     check(logs["cuda"] == logs["cpu"], f"{where}: remap plans differ")
     check(tiers["cuda"] == tiers["cpu"], f"{where}: tiers differ")
     check(op[0] == "corrupt" or snapshot_matches_device(gpu),
@@ -2678,6 +2739,63 @@ def _recovery_twin_op(where: str, op: tuple, gpu, cpu, logs: dict,
     check(all(t.device.type == "cuda" for st in gpu.stages
               for t in st.flat.values()),
           f"{where}: stage state left the card")
+    return out["cuda"]
+
+
+def check_seed_equals_fast(where: str, seed, fast, ring: bool = True):
+    """The seed-path cluster's state equals the fast one's with ``==``:
+    master, mu and nu of every stage (each path through its own gather)
+    and of every rank's shard, the parameters, the ring's CRCs; and, with
+    ``ring``, the seed's host ring against its device shards."""
+    for p, (ss, sf) in enumerate(zip(seed.stages, fast.stages)):
+        for c in ("master", "mu", "nu"):
+            a, b = seed._stage_full_vec(ss, c), fast._stage_full_vec(sf, c)
+            if not torch.equal(a, b):
+                i = int(torch.nonzero(a != b)[0])
+                check(False, f"{where}: seed path stage {p} {c} differs "
+                             f"first at element {i}: {a[i].item()!r} vs "
+                             f"{b[i].item()!r}")
+            del a, b
+            check(all(torch.equal(ss.shard(r)[c], sf.shard(r)[c])
+                      for r in ss.dp_ranks),
+                  f"{where}: seed path stage {p} {c} shards differ")
+    check(all(torch.equal(a, b) for a, b in zip(seed._leaves, fast._leaves)),
+          f"{where}: seed path parameters differ")
+    check([pl.crc for pl in seed.snapshots]
+          == [pl.crc for pl in fast.snapshots]
+          and all(not pl.batched for pl in seed.snapshots),
+          f"{where}: seed path ring CRCs differ")
+    check(not ring or snapshot_matches_device(seed),
+          f"{where}: seed path ring snapshot != device shards")
+    check(all(t.device.type == "cuda" for st in seed.stages
+              for t in st.flat.values()),
+          f"{where}: seed path stage state left the card")
+
+
+def seed_twin_op(where: str, op: tuple, want, seed, fast, logs: dict,
+                 tiers: dict, verify) -> dict:
+    """One op of ``TWIN_SEQUENCE`` on the card's seed-path cluster after the
+    fast one took it (``want``: what the fast cluster returned), held bit
+    for bit: the loss or record, remap plans, tiers, layouts and
+    ``check_seed_equals_fast``.  Returns the op's launches, which are then
+    taken back off the counters, so that the fast cluster's counts stay
+    its own."""
+    before = dict(_build.LAUNCHES)
+
+    def logged(self, *a, **kk):
+        res = verify(self, *a, **kk)
+        tiers["seed"].append(res[0])
+        return res
+    SnapshotPool.verify_and_repair = logged
+    got = _twin_op(seed, op)
+    delta = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    _build.LAUNCHES.update(before)
+    check(got == want, f"{where}: seed twin {got!r} vs fast {want!r}")
+    check(same_layout(seed, fast), f"{where}: seed twin layouts differ")
+    check(logs["seed"] == logs["cuda"], f"{where}: seed twin remap plans")
+    check(tiers["seed"] == tiers["cuda"], f"{where}: seed twin tiers")
+    check_seed_equals_fast(where, seed, fast, ring=op[0] != "corrupt")
+    return delta
 
 
 # snapshot_matches_device's staging: device shards cross to the host in
@@ -2807,12 +2925,14 @@ def profiled_step(cl: VirtualCluster) -> tuple:
 
 
 def phase_train(cfg, want: dict, steps: int,
-                profile_step: int | None = None, **cluster_kw) -> tuple:
+                profile_step: int | None = None, on_built=None,
+                **cluster_kw) -> tuple:
     """``steps`` steps of ``VirtualCluster.train_step`` at dp=2, pp=2, global
     batch 4 in 2 micro-batches, seq 4096, random weights from seed 1; step
     ``profile_step`` under ``torch.profiler`` (``profiled_step``; its step
-    time carries the profiler's cost).  Returns the launch counts and the
-    cluster."""
+    time carries the profiler's cost).  ``on_built(cl)`` is called once
+    the cluster is built, before its first step.  Returns the launch
+    counts, the cluster and each step's wall seconds."""
     t0 = time.perf_counter()
     cl = VirtualCluster(cfg, 2, 2, global_batch=4, num_micro=2, seq_len=4096,
                         device="cuda", **cluster_kw)
@@ -2823,7 +2943,10 @@ def phase_train(cfg, want: dict, steps: int,
         f"{[s.total for s in cl.stages]}, "
         f"set-up {time.perf_counter() - t0:.1f} s")
     check(snapshot_matches_device(cl), "bootstrap snapshot != device state")
+    if on_built is not None:
+        on_built(cl)
     _build.reset_launch_counts()
+    step_s = []
     for step in range(steps):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2833,6 +2956,7 @@ def phase_train(cfg, want: dict, steps: int,
             loss = cl.train_step()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        step_s.append(dt)
         snap = cl.snapshot_seconds[-1]
         if step == profile_step:
             us = split["us"]
@@ -2853,7 +2977,71 @@ def phase_train(cfg, want: dict, steps: int,
     launches = dict(_build.LAUNCHES)
     log(f"launches over {steps} steps: {launches}")
     check(launches == want, f"launch counts {launches} != {want}")
-    return launches, cl
+    return launches, cl, step_s
+
+
+def phase_seed_step(seed: VirtualCluster, fast: VirtualCluster,
+                    fast_step_s: float, want: dict) -> tuple:
+    """Phase 8's seed-path twin: ``seed`` (``fast_path=False``, built from
+    ``fast``'s weights before its step) takes one step, whose loss and
+    state (``check_seed_equals_fast``) must equal ``fast``'s with ``==``;
+    launches exact (``want``: one fused AdamW a (stage, rank)).  Its
+    step and snapshot seconds are printed beside the fast step's.  Returns
+    the launch counts and the record."""
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = seed.train_step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    snap, fast_snap = seed.snapshot_seconds[-1], fast.snapshot_seconds[-1]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = dict(_build.LAUNCHES)
+    name = f"{seed.cfg.name} ({seed.cfg.dtype}) seed path"
+    log(f"{name}: step_s {dt:.3f} snapshot_s {snap:.3f} (share "
+        f"{snap / dt:.3f}) against the fast path's step_s {fast_step_s:.3f} "
+        f"snapshot_s {fast_snap:.3f} (share {fast_snap / fast_step_s:.3f}); "
+        f"peak_mem_GB {peak:.2f} with the fast cluster held; launches "
+        f"{launches}")
+    check(launches == want, f"{name}: launches {launches} != {want}")
+    check(loss == fast.losses[-1],
+          f"{name}: loss {loss!r} != the fast path's {fast.losses[-1]!r}")
+    check(same_layout(seed, fast), f"{name}: layouts differ")
+    check_seed_equals_fast(name, seed, fast)
+    log(f"{name}: loss {loss!r}, every shard's master/mu/nu, the "
+        f"parameters and the ring == the fast path's")
+    return launches, dict(step_s=dt, snapshot_s=snap, fast_step_s=fast_step_s,
+                          fast_snapshot_s=fast_snap, peak_gb=peak)
+
+
+def phase_float32() -> tuple:
+    """Phase 8: the float32 mamba2 step on the float32 tensor-core SSD
+    route, depth cut to 2 layers, 1 step; then its seed-path twin, built
+    from the same weights before that step, takes the step too and must
+    equal it (``phase_seed_step``).  Returns the launch counts by path and
+    the seed step's record."""
+    cfg32 = dataclasses.replace(mamba2_2p7b.config(), num_layers=2,
+                                dtype="float32")
+    built = {}
+
+    def build_seed(cl):
+        t0 = time.perf_counter()
+        built["seed"] = VirtualCluster(
+            cfg32, 2, 2, global_batch=4, num_micro=2, seq_len=4096,
+            device="cuda", fast_path=False,
+            init_params=(cl.stem, cl.layer_params, cl.head))
+        built["setup_s"] = time.perf_counter() - t0
+        log(f"{cfg32.name} ({cfg32.dtype}) seed path: set-up "
+            f"{built['setup_s']:.1f} s (weights copied on the card, its "
+            f"per-rank ring bootstrapped)")
+    paths = {}
+    paths["mamba2-2.7b float32"], fast, step_s = phase_train(
+        cfg32, SSM_F32_LAUNCHES, steps=1, on_built=build_seed)
+    paths["mamba2-2.7b float32 seed path"], rec = phase_seed_step(
+        built["seed"], fast, step_s[0],
+        {**SSM_F32_LAUNCHES, "fused_adam": SEED_F32_ADAM})
+    rec["setup_s"] = built["setup_s"]
+    return paths, rec
 
 
 def phase_recovery(cl: VirtualCluster) -> tuple:
@@ -4157,6 +4345,72 @@ def blocks_vs_forward(params, cfg, tokens: list, n_prompt: int,
     return worst
 
 
+# phase 11's resumed-prefill gate: a prompt of RESUMED_PROMPT tokens
+# prefilled whole, and as two parts, the second resumed at RESUMED_SPLIT
+# from the first's carried state (chunk 256: the first part's tail and the
+# second's padded with dt = 0 rows)
+RESUMED_PROMPT, RESUMED_SPLIT = 1024, 600
+
+
+def resumed_prefill_gate(params, cfg) -> tuple:
+    """``cfg`` (mamba2-2.7b's widths at the logits gate's depth), its
+    weights in float32 as that gate takes them: one seeded prompt prefilled
+    whole (``transformer.prefill``: the SSD kernel with its final state)
+    and prefilled as two parts, the second resumed from the carried state
+    (``transformer.forward(..., cache_index=RESUMED_SPLIT)``: the plain
+    chunked scan from ``initial_state``).  The last logits and each
+    layer's final SSM and conv states within the float32 block bound
+    (``SERVE_BLOCK_TIERS``, 1e-4 of the tensor's max |value|, held);
+    launches exact: 2L + 1 rmsnorms a pass, the SSD route's L launches in
+    each prefill from index 0 and none in the resumed part.  Returns the
+    launch counts and the record."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = float32_params(params)
+    tier = SERVE_BLOCK_TIERS[cfg.family]
+    k, n = RESUMED_SPLIT, RESUMED_PROMPT
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(1, n)), device="cuda")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        whole = T.init_caches(cfg32, 1, n, device="cuda")
+        lw, whole = T.prefill(p32, cfg32, tokens, whole)
+        parts = T.init_caches(cfg32, 1, n, device="cuda")
+        T.prefill(p32, cfg32, tokens[:, :k], parts)
+        lr, parts, _ = T.forward(p32, cfg32, tokens[:, k:], caches=parts,
+                                 cache_index=k, last_only=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    L_ = cfg.num_layers
+    want = {key: 0 for key in launches}
+    want["rmsnorm"] = 3 * (2 * L_ + 1)
+    want[serve_route(cfg32, MAMBA)] = 2 * L_
+    name = f"{cfg.name} resumed prefill ({L_} layers, float32, {n} tokens " \
+        f"as {k} + {n - k})"
+    check(launches == want, f"{name}: launches {launches} != {want}")
+
+    def rel(a, b, what):
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        check(err <= tier["rtol"] * scale + tier["atol"],
+              f"{name}: {what} max_abs_err {err:.4e} beyond "
+              f"{tier['rtol']:g} x max |value| {scale:.4e}")
+        return err / scale
+    worst = {"logits": rel(lr, lw, "last logits"), "ssm": 0.0, "conv": 0.0}
+    for i, (a, b) in enumerate(zip(parts, whole)):
+        for key in ("ssm", "conv"):
+            worst[key] = max(worst[key], rel(a[key], b[key],
+                                             f"layer {i} {key} state"))
+    log(f"{name}: against the whole prefill, max err / max |value|: last "
+        f"logits {worst['logits']:.4e}, SSM states {worst['ssm']:.4e}, conv "
+        f"states {worst['conv']:.4e} (bound {tier['rtol']:g}, held); "
+        f"{wall:.2f} s; launches {({x: v for x, v in launches.items() if v})}")
+    del p32, whole, parts
+    return launches, dict(max_rel_err=worst, bound=tier["rtol"],
+                          layers=L_, split=[k, n - k], wall_s=wall)
+
+
 def full_forward_logits(params, cfg, tokens: list, frames=None,
                         prefix=None) -> torch.Tensor:
     """Logits [S, V] of every position of ``tokens`` in one full-sequence
@@ -4293,6 +4547,10 @@ def phase_serve_full(cfg, plan=SERVE_FULL_RUNS, **kw) -> tuple:
             r["launches"]
         gate = logits_vs_forward(cut_params, cut, r, float32_ref)
         del r
+        if cfg.family == "ssm":
+            c, gate["resumed_prefill"] = resumed_prefill_gate(cut_params,
+                                                              cut)
+            counts[f"{name} resumed prefill, {depth} layers, float32"] = c
     req = base["engine"].requests[0]
     gate["block_max_rel_err"] = blocks_vs_forward(
         params, cfg, [int(t) for t in req.prompt] + req.generated[:-1],
@@ -4559,7 +4817,7 @@ TRAIN_MAMBA = dict(steps=3, seq=512, batch=2)
 TRAIN_DENSE = dict(steps=2, seq=1024, batch=2)
 TRAIN_DENSE_LAYERS = 8
 # (c) the AdamW gate: in the second step of (a), three parameters' update
-# redone by the plain version on the CPU from their copied gradients and
+# redone by the plain version on the card from their copied gradients and
 # pre-step state: the embedding (the tied head's too), a Mamba2 in_proj and
 # a norm scale (float32)
 ADAM_GATE_PATHS = ((0, "embed", "embedding"), (1, 0, "mamba", "in_proj"),
@@ -4599,28 +4857,28 @@ def launcher_launches(cfg, n_params: int, steps: int) -> dict:
 
 
 def adam_gate(pre: dict, params, state: dict, cfg: AdamConfig) -> dict:
-    """Each gated parameter's update redone on the CPU by the plain version
-    (``ops.fused_adam_`` on CPU tensors) from its copied bf16 or float32
-    gradient and pre-step state, held to the ``fused_adam`` tier against
-    the card's; whether bitwise (both sides take the bias corrections of
-    ``ops.adam_scalars``).  The CPU result is compared on the card, in
-    place in the copies ``pre`` holds (the comparison's passes over the
-    embedding's 129 M elements took seconds on the host)."""
+    """Each gated parameter's update redone by the plain version
+    (``ref.adam_flat_reference``, the CPU path of ``ops.fused_adam_``) on
+    the card, from its copied bf16 or float32 gradient and pre-step state
+    (copies on the card), held to the ``fused_adam`` tier against the
+    kernel's; whether bitwise (both sides take the bias corrections of
+    ``ops.adam_scalars``).  On the card: the CPU's copies and passes over
+    the embedding's 129 M elements took ~5 s of host time."""
     out = {}
+    scalars = ops.adam_scalars(state["step"], b1=cfg.b1, b2=cfg.b2,
+                               eps=cfg.eps, lr=cfg.lr,
+                               weight_decay=cfg.weight_decay)
     for path, c in pre.items():
-        g = c["g"].reshape(-1).float().contiguous()
-        new = {k: c[k].reshape(-1) for k in ("master", "mu", "nu")}
-        ops.fused_adam_(g, new["master"], new["mu"], new["nu"],
-                        step=state["step"], b1=cfg.b1, b2=cfg.b2,
-                        eps=cfg.eps, lr=cfg.lr,
-                        weight_decay=cfg.weight_decay)
+        g = c["g"].reshape(-1).float()
+        new = ref.adam_flat_reference(
+            g, *(c[k].reshape(-1) for k in ("master", "mu", "nu")), scalars)
         card = {k: v.reshape(-1) for k, v in
                 at(state["leaves"], path).items()}
         card["p"] = at(params, path).detach().reshape(-1)
         new["p"] = new["master"].to(card["p"].dtype)
         rec = {}
         for k in ("master", "mu", "nu", "p"):
-            new[k] = new[k].to(card[k].device)
+            check(new[k].is_cuda, f"AdamW gate: {k} off the card")
             ok, err = within(card[k], new[k], ADAM_TIER)
             check(ok, f"AdamW gate {'/'.join(map(str, path))} {k}: max "
                       f"|diff| {err:.3e} beyond the fused_adam tier")
@@ -4647,7 +4905,7 @@ def launcher_probe(gate_paths: tuple = ()):
         t0 = time.perf_counter()
         out = inner_step(*a, **k)
         torch.cuda.synchronize()
-        # the AdamW gate's host copies and CPU update are not the step's
+        # the AdamW gate's copies and plain update are not the step's
         rec["step_ms"].append((time.perf_counter() - t0
                                - (rec["gate_s"] - gate_s)) * 1e3)
         rec["step_launches"].append(
@@ -4655,15 +4913,18 @@ def launcher_probe(gate_paths: tuple = ()):
         return out
 
     def adam(params, grads, state, cfg):
-        host = lambda t: t.detach().to("cpu", copy=True)     # noqa: E731
-        t0 = time.perf_counter()
-        pre = {path: dict(g=host(at(grads, path)),
-                          **{c: host(v) for c, v in
-                             at(state["leaves"], path).items()})
-               for path in gate_paths} \
-            if gate_paths and state["step"] == ADAM_GATE_STEP else None
-        rec["gate_s"] += time.perf_counter() - t0
+        copy = lambda t: t.detach().clone()                  # noqa: E731
+        # the step's queued forward and backward stay in the step's time
         torch.cuda.synchronize()
+        pre = None
+        if gate_paths and state["step"] == ADAM_GATE_STEP:
+            t0 = time.perf_counter()
+            pre = {path: dict(g=copy(at(grads, path)),
+                              **{c: copy(v) for c, v in
+                                 at(state["leaves"], path).items()})
+                   for path in gate_paths}
+            torch.cuda.synchronize()
+            rec["gate_s"] += time.perf_counter() - t0
         t0 = time.perf_counter()
         params, new = inner_adam(params, grads, state, cfg)
         torch.cuda.synchronize()
@@ -4677,6 +4938,8 @@ def launcher_probe(gate_paths: tuple = ()):
         if pre is not None:
             t0 = time.perf_counter()
             rec["gate"] = adam_gate(pre, params, new, cfg)
+            del pre
+            torch.cuda.synchronize()
             rec["gate_s"] += time.perf_counter() - t0
         return params, new
 
@@ -4758,9 +5021,9 @@ def phase_launcher_full(name: str, cfg, run: dict, fn) -> tuple:
         f"{peak:.2f}; AdamW state {probe['state_bytes']} bytes on the card; "
         f"launches a step {rec['launches_per_step']}; {wall:.1f} s")
     if probe["gate"]:
-        log(f"{name}: AdamW gate (step {ADAM_GATE_STEP + 1}, card vs the "
-            f"plain version on the CPU, {probe['gate_s']:.1f} s, not in the "
-            f"step's time): {probe['gate']}")
+        log(f"{name}: AdamW gate (step {ADAM_GATE_STEP + 1}, the kernel vs "
+            f"the plain version on the card, {probe['gate_s']:.2f} s, not in "
+            f"the step's time): {probe['gate']}")
     return counts, rec
 
 
@@ -5417,7 +5680,9 @@ def main() -> None:
           and twin_moe["flash_attention_sm90"] == 0,
           f"tiny moe recovery twin (float32) must take the 3xTF32 flash "
           f"route only: {twin_moe}")
-    twin_ssm = phase_tiny_recovery_twin("ssm")
+    # the seed path (fast_path=False) on the card beside the fast twins of
+    # ssm and of dense at dropout 0.1, bit for bit
+    twin_ssm = phase_tiny_recovery_twin("ssm", seed_twin=True)
     check(twin_ssm["ssd_scan"] > 0 and twin_ssm["ssd_scan_sm90"] == 0
           and twin_ssm["ssd_scan_sm90_f32"] == 0,
           f"tiny ssm recovery twin (float32, chunk 8) must take the "
@@ -5434,7 +5699,8 @@ def main() -> None:
         check(counts == want, f"tiny {family} twin (dropout {mode}): "
                               f"launches {counts} != {want}")
         drop_twins[f"{family}, {mode}"] = counts
-    twin_drop = phase_tiny_recovery_twin("dense", dropout_rate=DROPOUT_RATE)
+    twin_drop = phase_tiny_recovery_twin("dense", dropout_rate=DROPOUT_RATE,
+                                         seed_twin=True)
     want = {**twin_dense,
             "threefry_dropout": DROPOUT_TWIN_LAUNCHES["dense recovery"]}
     check(twin_drop == want, f"tiny dense recovery twin (dropout): launches "
@@ -5443,6 +5709,8 @@ def main() -> None:
         recs[name].update(errs)
     torch.cuda.empty_cache()
     clock.mark("phase 4 (tiny twins, path shapes)")
+    log(f"[clock] phase 4's seed-path twins (ssm, dense at dropout 0.1): "
+        f"{seed_twin_s[0]:.1f} s of phase 4's time")
     # the dense train step without dropout, one step (cut from 2 for the
     # serving phase's time)
     paths = {"codeqwen1.5-7b": phase_train(
@@ -5460,7 +5728,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     clock.mark("phase 5 (codeqwen at dropout 0.1)")
-    paths["mamba2-2.7b"], ssm = phase_train(
+    paths["mamba2-2.7b"], ssm, _ = phase_train(
         dataclasses.replace(mamba2_2p7b.config(), num_layers=4), SSM_LAUNCHES,
         steps=2, hw=H100_HW)
     clock.mark("phase 6 (mamba2 steps)")
@@ -5469,11 +5737,9 @@ def main() -> None:
     gc.collect()           # free the bf16 mamba2 cluster's host and card state
     torch.cuda.empty_cache()
     clock.mark("phase 7 (recovery)")
-    # the float32 mamba2 step on the float32 tensor-core SSD route, depth
-    # cut to 2 layers, 1 step
-    paths["mamba2-2.7b float32"] = phase_train(
-        dataclasses.replace(mamba2_2p7b.config(), num_layers=2,
-                            dtype="float32"), SSM_F32_LAUNCHES, steps=1)[0]
+    # the float32 mamba2 step and its seed-path twin
+    f32_paths, seed_step = phase_float32()
+    paths.update(f32_paths)
     gc.collect()
     torch.cuda.empty_cache()
     clock.mark("phase 8 (mamba2 float32)")
@@ -5544,6 +5810,7 @@ def main() -> None:
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"recoveries": recoveries}))
+    log(json.dumps({"seed_path": seed_step}))
     log(json.dumps({"scenarios": scenarios, "phase_s": scenario_s}))
     log(json.dumps({"fuzz": fuzz_runs, "phase_s": fuzz_s}))
     log(json.dumps({"serving": serving, "phase_s": serve_s}))

@@ -38,8 +38,10 @@ Dropout draws the reference's masks bit for bit: the key chain is
 ``rng_mode="reshard"`` and rank-addressed ids (``arange(B) + rank*100003``,
 the paper's "w/o RNG resharding") under ``"naive"``.
 
-Not yet ported, and raising ``NotImplementedError``: the seed path
-(``fast_path=False``).
+``fast_path=False`` selects the seed path (``core/legacy.py``): the
+seed's per-item, per-shard and per-entry loops, with the same arithmetic
+as the fast path element for element, so on float32 configs the two paths
+agree bit for bit (``invariants.ParameterConsistencyChecker``).
 """
 from __future__ import annotations
 
@@ -57,6 +59,7 @@ from repro_torch.models.layers import RngCtx
 from repro_torch.models.transformer import softmax_xent
 from repro_torch.optim.adam import AdamConfig, adam_update_flat_
 from repro_torch.weights import params_from_numpy
+from . import legacy
 from .agent import Agent, Probe
 from .clusterview import ClusterView, GroupDelta
 from .communicator import DynamicCommunicator, build_hybrid_groups
@@ -118,10 +121,6 @@ class VirtualCluster:
                  init_params: Optional[Tuple[Any, List[Any], Any]] = None):
         assert global_batch % num_micro == 0
         assert (global_batch // num_micro) % dp == 0, "initial even split"
-        if not fast_path:
-            raise NotImplementedError(
-                "fast_path=False (the seed per-item loops) is not ported; "
-                "the JAX package stays the seed-path oracle")
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         self.cfg = cfg
@@ -175,7 +174,7 @@ class VirtualCluster:
         for p in range(pp):
             st = self._build_stage_state(p, list(range(dp)))
             self.stages.append(st)
-            pool = SnapshotPool(dp, self.adam)
+            pool = SnapshotPool(dp, self.adam, batched=fast_path)
             if snapshot_enabled:
                 pool.bootstrap(0, [st.shard(r) for r in st.dp_ranks])
             self.snapshots.append(pool)
@@ -233,10 +232,20 @@ class VirtualCluster:
             {"master": full, "mu": torch.zeros_like(full),
              "nu": torch.zeros_like(full)})
 
+    def _stage_full_vec(self, st: StageState,
+                        comp: str = "master") -> torch.Tensor:
+        """All-gather equivalent: the stage's full state vector, on the
+        device (the seed path through its per-interval loop)."""
+        if self.fast_path:
+            return st.full(comp)
+        return legacy.stage_full_vec(st, comp)
+
     def _write_params_from_masters(self):
         """Scatter each stage's masters back to stage-space order on the
         device and copy them into the parameters in place (cast to each
         leaf's dtype)."""
+        if not self.fast_path:
+            return legacy.write_params_from_masters(self)
         for st in self.stages:
             full = st.full("master")
             tbl = st.table
@@ -318,6 +327,8 @@ class VirtualCluster:
         shard order and ONE fused-AdamW kernel launch updates the stage's flat
         buffers in place on the card; the gradient shards then cross to the
         host once (one copy per stage) for the ring snapshot."""
+        if not self.fast_path:
+            return legacy.train_step(self)
         step = self.step_count
         loss, gflat = self._micro_grads(step)
         self.opt_step += 1
@@ -603,6 +614,8 @@ class VirtualCluster:
     def _widen_stage(self, p: int, joining: List[int]) -> float:
         """Reverse remap: redistribute the stage state over a WIDER group,
         from the current owners' device shards."""
+        if not self.fast_path:
+            return legacy.widen_stage(self, p, joining)
         st = self.stages[p]
         old_ranks = list(st.dp_ranks)
         tbl = st.table
@@ -709,13 +722,16 @@ class VirtualCluster:
     def _rebootstrap(self, p: int) -> None:
         """A fresh ring snapshot pool for stage ``p``'s current DP group."""
         st = self.stages[p]
-        self.snapshots[p] = SnapshotPool(len(st.dp_ranks), self.adam)
+        self.snapshots[p] = SnapshotPool(len(st.dp_ranks), self.adam,
+                                         batched=True)
         if self.snapshot_enabled:
             self.snapshots[p].bootstrap(self.step_count,
                                         [st.shard(r) for r in st.dp_ranks])
 
     def _live_remap_stage(self, p: int, failed: List[int],
                           ) -> Tuple[float, RemapPlan]:
+        if not self.fast_path:
+            return legacy.live_remap_stage(self, p, failed)
         st = self.stages[p]
         pool = self.snapshots[p]
         tbl = st.table
@@ -750,6 +766,8 @@ class VirtualCluster:
                                        failed: List[int]) -> torch.Tensor:
         """Pre-failure ground truth on the device: survivors' device state +
         failed ranks' snapshot state (copied up from the host ring)."""
+        if not self.fast_path:
+            return legacy.stage_full_vec_with_snapshots(self, p, comp, failed)
         st = self.stages[p]
         pool = self.snapshots[p]
         tbl = st.table
@@ -774,6 +792,8 @@ class VirtualCluster:
         from one scatter per component per affected stage.  The parameters
         themselves stay where they are (the flattener writes each entry back
         by id, whichever stage owns it)."""
+        if not self.fast_path:
+            return legacy.apply_migrations(self, moves, new_ranges)
         total_stall = 0.0
         step_window = self.simulate_step_time()
         for (lid, src, dst) in moves:
@@ -818,6 +838,8 @@ class VirtualCluster:
         return total_stall
 
     def _entry_from_stage(self, e: int) -> Dict[str, torch.Tensor]:
+        if not self.fast_path:
+            return legacy.entry_from_stage(self, e)
         for st in self.stages:
             if e in st.entries:
                 pos = st.entries.index(e)

@@ -1,4 +1,4 @@
-"""Per-step ring snapshot (paper §5.1, Fig. 6), batched path.
+"""Per-step ring snapshot (paper §5.1, Fig. 6).
 
 Worker i backs up the optimizer-state partition of worker (i+1) mod n into
 its *host* memory.  Only **gradient shards** cross to the host (>= 4x
@@ -7,13 +7,16 @@ with the numpy oracle, so after each step O_i^host == O_{(i+1)%n}^device
 bit-for-bit (the device runs the fused-AdamW kernel, bitwise equal to the
 oracle).  Live Remap relies on that for integrity.
 
-Mirrors the batched path of ``repro.core.fabric.snapshot.SnapshotPool``: the
-host side stays numpy (the paper's host-memory ring), every holder's state
-is one concatenated buffer per component, and one host Adam update (and,
-under ``compress="bf16"``, one compression round trip) covers the whole DP
-group.  CRC32 checksums of the host copies are stamped at every write, and
-recovery re-hashes a shard before trusting it (``verify_and_repair``, with
-the reference's graceful-degradation tiers).
+Mirrors ``repro.core.fabric.snapshot.SnapshotPool``.  The host side stays
+numpy (the paper's host-memory ring).  On the default batched path every
+holder's state is one concatenated buffer per component, and one host Adam
+update (and, under ``compress="bf16"``, one compression round trip) covers
+the whole DP group.  ``batched=False`` keeps the seed's per-rank loop (one
+host Adam update and one compression a holder), elementwise the same; the
+seed path of the cluster (``core/legacy.py``) uses it.  CRC32 checksums of
+the host copies are stamped at every write, and recovery re-hashes a shard
+before trusting it (``verify_and_repair``, with the reference's
+graceful-degradation tiers).
 """
 from __future__ import annotations
 
@@ -61,17 +64,19 @@ class SnapshotPool:
 
     def __init__(self, n: int, adam_cfg: Optional[AdamConfig] = None,
                  d2d_bw: float = 25e9, host_flops: float = 5e10,
-                 compress: str = "none", integrity: bool = True):
+                 compress: str = "none", batched: bool = True,
+                 integrity: bool = True):
         self.n = n
         self.adam = adam_cfg or AdamConfig()
         self.d2d_bw = d2d_bw
         self.host_flops = host_flops
         assert compress in ("none", "bf16")
         self.compress = compress
+        self.batched = batched
         self.integrity = integrity
-        # host[i] = snapshot of worker (i+1) % n's shard state; after the
-        # first step, zero-copy views into one concatenated buffer per
-        # component (_cat)
+        # host[i] = snapshot of worker (i+1) % n's shard state; on the
+        # batched path, after the first step, zero-copy views into one
+        # concatenated buffer per component (_cat)
         self.host: List[Optional[Dict[str, np.ndarray]]] = [None] * n
         self.snap_step: List[int] = [-1] * n
         self.stats: List[SnapshotStats] = []
@@ -127,6 +132,8 @@ class SnapshotPool:
 
         grad_shards[j]: fp32 host gradient of worker j's owned shard (1-D).
         """
+        if not self.batched:
+            return self._snapshot_step_loop(step, grad_shards, opt_step)
         self._ensure_cat()
         gs = [np.asarray(grad_shards[self.backup_rank(i)], dtype=np.float32)
               for i in range(self.n)]
@@ -146,6 +153,36 @@ class SnapshotPool:
             grad_bytes_sent=total_grad_bytes,
             state_bytes_equiv=total_grad_bytes // GRAD_BYTES * ADAM_STATE_BYTES,
             host_update_seconds=gcat.size * 12 / self.host_flops,
+            d2d_seconds=total_grad_bytes / self.d2d_bw,
+        )
+        self.stats.append(stats)
+        return stats
+
+    def _snapshot_step_loop(self, step: int, grad_shards: List[np.ndarray],
+                            opt_step: int) -> SnapshotStats:
+        """Seed per-rank loop: one compression and one host Adam update a
+        holder (``adam_update_flat_np``, bitwise the reference's eager
+        ``adam_update_flat``)."""
+        total_grad_bytes = 0
+        host_flops = 0
+        for i in range(self.n):
+            g = np.asarray(grad_shards[self.backup_rank(i)], dtype=np.float32)
+            if self.compress == "bf16":
+                g = torch.from_numpy(g).to(torch.bfloat16).float().numpy()
+                total_grad_bytes += g.size * 2        # bf16 on the wire
+            else:
+                total_grad_bytes += g.nbytes
+            st = self.host[i]
+            assert st is not None, "bootstrap() first"
+            self.host[i] = adam_update_flat_np(g, st, opt_step, self.adam)
+            host_flops += g.size * 12     # ~12 flops/element Adam
+            self.snap_step[i] = step
+        self._stamp_all()
+        stats = SnapshotStats(
+            step=step,
+            grad_bytes_sent=total_grad_bytes,
+            state_bytes_equiv=total_grad_bytes // GRAD_BYTES * ADAM_STATE_BYTES,
+            host_update_seconds=host_flops / self.host_flops,
             d2d_seconds=total_grad_bytes / self.d2d_bw,
         )
         self.stats.append(stats)
@@ -256,3 +293,9 @@ class SnapshotPool:
         self.host[holder] = state
         if self.integrity:
             self.crc[holder] = self._checksum(state)
+
+    def critical_path_overhead(self) -> float:
+        """Fraction of snapshot work NOT hidden (Fig. 6b: ~0; small launch
+        overhead remains): the reference's modeled constant, not a
+        measurement of this port (whose snapshot runs inline)."""
+        return 0.004

@@ -19,8 +19,9 @@ and every policy decision:
    the seed implementation) through the identical event/step sequence and
    asserts shard-for-shard equality, and independently re-derives every
    rank's shard from the stage's reassembled master vector through the
-   pure-Python ``zero.Layout`` ownership map.  The port has no seed path
-   yet: building the twin raises ``NotImplementedError``.
+   pure-Python ``zero.Layout`` ownership map.  The port's two paths do the
+   same float32 arithmetic element for element (``core/legacy.py``), so
+   the twin holds them with ``==`` on the CPU.
    :class:`KernelConsistencyChecker` holds a card cluster to its CPU twin
    under the declared kernel tolerance.
 2. **Dataflow consistency (§4.1)** — :class:`DataflowConsistencyChecker`:
@@ -154,8 +155,8 @@ class ParameterConsistencyChecker(InvariantChecker):
                     or list(st.dp_ranks) != list(ts.dp_ranks)):
                 self.fail(f"{where}: stage {p} structure diverged")
             for comp in COMPONENTS:
-                a = _host(st.full(comp))
-                b = _host(ts.full(comp))
+                a = _host(cl._stage_full_vec(st, comp))
+                b = _host(tw._stage_full_vec(ts, comp))
                 if not np.array_equal(a, b):
                     i = int(np.flatnonzero(a != b)[0])
                     self.fail(f"{where}: stage {p} {comp} full vector "
@@ -588,9 +589,9 @@ def default_cluster_checkers(device=None) -> List[InvariantChecker]:
     On the card, the tolerance-tier :class:`KernelConsistencyChecker`
     (card/CPU twin) holds invariant 1, relaxed to the kernels' declared
     tolerance; on the CPU the bit-exact fast/seed
-    :class:`ParameterConsistencyChecker` does (its twin raises
-    ``NotImplementedError`` until the seed path is ported).  The other
-    three are unchanged."""
+    :class:`ParameterConsistencyChecker` does, its twin on the seed path
+    (``fast_path=False``, ``core/legacy.py``).  The other three are
+    unchanged."""
     on_card = device is None or str(device).startswith("cuda")
     param: InvariantChecker = (KernelConsistencyChecker() if on_card
                                else ParameterConsistencyChecker())

@@ -18,8 +18,11 @@ the reference (no kernel there).  A prefill starts from the zero state of
 :func:`init_mamba_state` and runs the SSD kernel with its final state
 (``ops.ssd_scan(..., return_final_state=True)``), at the reference's chunk
 ``min(ssm_chunk, S)`` with the tail padded by rows of ``dt = 0``, which
-leave the state as it is; a prefill resumed from a carried state raises.
-States are updated in place (the reference returns new ones with the same
+leave the state as it is.  A prefill resumed from a carried state
+(``cache_index`` not 0) runs the plain chunked scan :func:`ssd_chunked`
+from ``initial_state=state["ssm"]``, as the reference routes it: the
+reference's SSD kernel, and so the port's, takes no initial state.  States
+are updated in place (the reference returns new ones with the same
 values).
 """
 from __future__ import annotations
@@ -30,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import ssd_chunked  # noqa: F401  (re-export)
+from repro_torch.kernels.ref import ssd_chunked
 from repro_torch.parallel import dtensor as DT
 from .config import ModelConfig
 from . import layers as L
@@ -131,16 +134,13 @@ def apply_mamba(params, cfg: ModelConfig, x, state: Optional[Dict] = None,
     """Mamba2 block.  x: [b,s,d] -> ([b,s,d], state).  ``state`` =
     {"ssm": [b,h,p,n], "conv": [b,k-1,conv_dim]} enables the serving
     branches, updated in place: a single-token decode (s == 1), or a
-    prefill (s > 1), which must start the sequence (``cache_index`` 0) and
-    scans from the zero state; ``rows`` ([n] batch rows, None = all) limits
-    the state writes to those rows.  None = full-sequence training."""
+    prefill (s > 1), from the zero state at ``cache_index`` 0 (the SSD
+    kernel) or resumed from the carried state otherwise (the plain chunked
+    scan); ``rows`` ([n] batch rows, None = all) limits the state writes
+    to those rows.  None = full-sequence training."""
     B_, S, _ = x.shape
     H, p_ = cfg.ssm_heads, cfg.ssm_headdim
     di, ds, ng = cfg.d_inner, cfg.ssm_state, cfg.ssm_ngroups
-    if state is not None and S > 1 and not L.is_prefill(cache_index):
-        raise NotImplementedError(
-            "a prefill resumed from a carried SSM state is not ported: the "
-            "SSD kernels scan from a zero state (cache_index must be 0)")
     if cfg.mamba_split_proj:
         # slice the weight per component, as the reference does for TP
         w = params["in_proj"]
@@ -172,6 +172,13 @@ def apply_mamba(params, cfg: ModelConfig, x, state: Optional[Dict] = None,
     else:
         if S == 1:
             y, ssm_state = ssd_decode_step(xs, dt, A, Bv, Cv, state["ssm"])
+        elif not L.is_prefill(cache_index):
+            # resumed from the carried state: the SSD kernels take no
+            # initial state (nor does the reference's), so the plain
+            # chunked scan, as the reference routes it
+            y, ssm_state = ssd_chunked(xs, dt, A, Bv, Cv,
+                                       chunk=min(cfg.ssm_chunk, S),
+                                       initial_state=state["ssm"])
         else:
             y, ssm_state = _prefill_scan(xs, dt, A, Bv, Cv,
                                          min(cfg.ssm_chunk, S))

@@ -428,9 +428,9 @@ def run_case(case: FuzzCase, policy: Optional[str] = None, checkers=None,
 
     Numeric cases default to ``default_cluster_checkers`` for the
     workload's device: on the card the tolerance-tier kernel checker with
-    its CPU twin; on the CPU the bit-exact parameter checker, whose
-    seed-path twin raises ``NotImplementedError`` (not ported), so that
-    invariant 1 is never dropped in silence.
+    its CPU twin; on the CPU the bit-exact parameter checker with its
+    seed-path twin (``fast_path=False``), so that invariant 1 is never
+    dropped in silence.
 
     An :class:`InvariantViolation` is re-raised with the fuzz seed and the
     one-line repro command appended, so a red CI log is actionable as-is.

@@ -56,7 +56,7 @@ class ClusterWorkload:
         the constructor — e.g. ``device="cpu"`` with the card cluster's
         ``init_params`` builds the plain-version twin the tolerance-tier
         kernel checker compares a card run against, and ``fast_path=False``
-        the seed-path twin (not ported: it raises)."""
+        the seed-path twin of the bit-exact parameter checker."""
         from repro_torch.core.cluster import VirtualCluster
         from repro_torch.models import registry as R
         cfg = R.tiny_config(self.family, num_layers=self.num_layers,

@@ -82,15 +82,19 @@ def test_ring_snapshot_equals_device_shards_bitwise():
 
 
 def test_unported_options_and_recovery_raise():
-    """The seed path still raises; dropout trains (it no longer raises),
-    in both rng modes; the control plane's ``hw`` / ``mem_cap`` are
-    accepted and recovery runs (it no longer raises), returning the
-    reference's record schema."""
+    """Options once unported now run: the seed path (``fast_path=False``)
+    builds and trains, on per-rank ring pools, with the fast path's losses;
+    dropout trains in both rng modes; the control plane's ``hw`` /
+    ``mem_cap`` are accepted and recovery runs, returning the reference's
+    record schema."""
     from repro.core.cluster import _recovery_record
     from repro_torch.core.cost_model import HardwareSpec
     cfg = tiny_config("dense", num_layers=2)
-    with pytest.raises(NotImplementedError, match="fast_path"):
-        VirtualCluster(cfg, 2, 2, fast_path=False, device="cpu", **KW)
+    seed = VirtualCluster(cfg, 2, 2, fast_path=False, device="cpu", **KW)
+    assert not seed.fast_path
+    assert all(not pool.batched for pool in seed.snapshots)
+    fast = VirtualCluster(cfg, 2, 2, device="cpu", **KW)
+    assert seed.run(2) == fast.run(2)
     for mode in ("reshard", "naive"):
         drop = VirtualCluster(tiny_config("dense", num_layers=2,
                                           dropout_rate=0.1), 2, 2,
@@ -105,8 +109,9 @@ def test_unported_options_and_recovery_raise():
     assert set(rec) == set(_recovery_record())
     assert cl.recoveries == [rec] and cl.stages[1].dp_ranks == [1]
     # the ssm family trains; its decode and prefill-with-state branches
-    # run on the cluster's layers (the serving slice), a prefill resumed
-    # from a carried state raises
+    # run on the cluster's layers (the serving slice), and so does a
+    # prefill resumed from a carried state: it gives the whole prefill's
+    # output
     from repro_torch.models.mamba import apply_mamba, init_mamba_state
     ssm = VirtualCluster(tiny_config("ssm", num_layers=2), 2, 2,
                          device="cpu", **KW)
@@ -117,6 +122,15 @@ def test_unported_options_and_recovery_raise():
                              state=state, cache_index=0)
         assert out is state and y.shape == (1, seq, ssm.cfg.d_model)
         assert state["ssm"].any() and torch.isfinite(y).all()
-    with pytest.raises(NotImplementedError, match="carried SSM state"):
-        apply_mamba(p, ssm.cfg, torch.ones(1, 8, ssm.cfg.d_model),
-                    state=init_mamba_state(ssm.cfg, 1), cache_index=3)
+    x = torch.randn(1, 8, ssm.cfg.d_model,
+                    generator=torch.Generator().manual_seed(0))
+    whole = init_mamba_state(ssm.cfg, 1)
+    y, _ = apply_mamba(p, ssm.cfg, x, state=whole, cache_index=0)
+    part = init_mamba_state(ssm.cfg, 1)
+    y0, _ = apply_mamba(p, ssm.cfg, x[:, :3], state=part, cache_index=0)
+    y1, out = apply_mamba(p, ssm.cfg, x[:, 3:], state=part, cache_index=3)
+    assert out is part
+    torch.testing.assert_close(torch.cat([y0, y1], 1), y, rtol=1e-4,
+                               atol=1e-5)
+    for k in ("ssm", "conv"):
+        torch.testing.assert_close(part[k], whole[k], rtol=1e-4, atol=1e-5)

@@ -12,12 +12,13 @@ results but for the measured wall clocks.  The shrinker, given the same
 failing predicate, returns the same minimal trace.  The detector-only
 chaos sweep passes 150 seeds, and the soak script's analytic sweep exits
 0 with the reference's failure-record keys.  On a CPU cluster workload
-``run_case`` with its default checkers raises ``NotImplementedError``
-(invariant 1's seed-path twin) and never passes in silence.
+``run_case`` with its default checkers holds invariant 1 with its
+seed-path twin (bit for bit) and passes.
 """
 import dataclasses
 import importlib.util
 import itertools
+import math
 from pathlib import Path
 
 import pytest
@@ -31,7 +32,8 @@ from repro.scenarios import spec as j_spec  # noqa: E402
 
 from repro_torch.core.events import ElasticEvent, EventKind  # noqa: E402
 from repro_torch.core.invariants import (  # noqa: E402
-    DataflowConsistencyChecker, InvariantChecker, InvariantViolation)
+    DataflowConsistencyChecker, InvariantChecker, InvariantViolation,
+    ParameterConsistencyChecker)
 from repro_torch.scenarios import (CHAOS_CLASSES, POLICY_NAMES,  # noqa: E402
                                    ClusterWorkload, FuzzCase, Scenario,
                                    fuzz, make_analytic_case, make_case,
@@ -327,12 +329,28 @@ def test_chaos_checkers_drop_only_invariant_1_in_the_corrupt_class():
 # ---------------------------------------------------------------------------
 # no silent pass on the CPU
 # ---------------------------------------------------------------------------
-def test_cpu_cluster_case_with_default_checkers_raises():
+def test_cpu_cluster_case_with_default_checkers_raises(monkeypatch):
+    """A CPU cluster case runs with the default checkers, the bit-exact
+    parameter checker's seed-path twin among them (so invariant 1 is held,
+    not dropped), and passes: the twin ran on the seed path through every
+    step, its losses the run's."""
+    made, fuzz_default = [], fuzz.default_cluster_checkers
+
+    def default(**kw):
+        made.append(fuzz_default(**kw))
+        return made[-1]
+    monkeypatch.setattr(fuzz, "default_cluster_checkers", default)
     case = fuzz.make_cluster_case(6)
     cpu = dataclasses.replace(case, workload=dataclasses.replace(
         case.workload, device="cpu"))
-    with pytest.raises(NotImplementedError, match="fast_path=False"):
-        run_case(cpu)
+    res = run_case(cpu)
+    assert len(res.steps) == cpu.scenario.horizon
+    assert all(math.isfinite(x) for x in res.summary["losses"])
+    assert len(made) == 1 and type(made[0][0]) is ParameterConsistencyChecker
+    twin = made[0][0].twin
+    assert twin is not None and twin.fast_path is False
+    assert twin.losses == res.summary["losses"]
+    assert twin.step_count == cpu.scenario.horizon
 
 
 # ---------------------------------------------------------------------------

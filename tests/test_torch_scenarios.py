@@ -8,9 +8,9 @@ The reference's injected-violation tests, ported: a shard corruptor, the
 naive rank-addressed RNG, a tampered communicator and a batch mutator must
 each be caught by the port's checkers.  ``tiny_config`` gives every family's
 config field for field, and building a block the port has not ported still
-raises.  On a CPU cluster the parameter twin raises ``NotImplementedError``
-(the seed path is not ported), and the kernel-consistency checker's card
-twin raises without a card: neither passes in silence.
+raises.  On a CPU cluster the default checkers run: the parameter twin on
+the seed path holds the fast path with ``==``; the kernel-consistency
+checker's card twin raises without a card, so it never passes in silence.
 """
 import dataclasses
 import json
@@ -317,13 +317,18 @@ def test_mutated_global_batch_is_caught():
 
 def test_cpu_cluster_checkers_do_not_pass_in_silence():
     """``default_cluster_checkers(device="cpu")`` holds invariant 1 with the
-    seed-path twin, which raises; the card checkers' spot check raises
-    without a card."""
+    seed-path twin: a shrink-bearing trace passes every checker, the twin
+    run through each event and step (its loss trajectory equals the
+    run's); the card checkers' spot check raises without a card."""
     scn, w = to_port_cluster(shrink_case(make_cluster_case))
     cks = default_cluster_checkers(device="cpu")
     assert [type(c) for c in cks] == [ParameterConsistencyChecker, *STACK]
-    with pytest.raises(NotImplementedError, match="fast_path"):
-        run_scenario(scn, w, checkers=cks)
+    res = run_scenario(scn, w, checkers=cks)
+    assert len(res.steps) == scn.horizon and res.recoveries
+    twin = cks[0].twin
+    assert twin is not None and twin.fast_path is False
+    assert twin.losses == res.summary["losses"]
+    assert twin.step_count == scn.horizon
     card = default_cluster_checkers(device="cuda")
     assert [type(c) for c in card] == [KernelConsistencyChecker, *STACK]
     assert [type(c) for c in default_cluster_checkers()] == \

@@ -2,8 +2,8 @@
 ``ssd_decode_step``, ``_causal_conv`` with a state, the final state of the
 plain SSD scan (``ops.ssd_scan`` and ``ref.ssd_chunked``, ragged tails
 padded with dt = 0) against the reference's ``ssd_chunked``, the prefill
-branch of ``apply_mamba`` at a ragged length, and the resumed prefill
-that still raises.
+branch of ``apply_mamba`` at a ragged length, and the prefill resumed
+from a carried state (the plain chunked scan from ``initial_state``).
 
 Inputs come from numpy with a seed.  Float32; tolerance ``FWD`` (rtol
 1e-4, atol 1e-5, the ``ssd_scan`` tier of ``kernels/ops.py``): the port's
@@ -113,9 +113,33 @@ def test_mamba_prefill_of_ragged_length_matches_reference():
 
 
 def test_mamba_prefill_resumed_from_a_state_raises():
-    _, cfg_t = _ssm_cfgs()
-    params = M.init_mamba(torch.Generator().manual_seed(0), cfg_t)
-    x = torch.zeros(1, 4, cfg_t.d_model)
-    with pytest.raises(NotImplementedError, match="carried SSM state"):
-        M.apply_mamba(params, cfg_t, x, state=M.init_mamba_state(cfg_t, 1),
-                      cache_index=torch.tensor([3]))
+    """A prefill resumed from a carried (nonzero) state at cache_index 3,
+    s = 11 (chunk 8: a padded tail): output and both states against the
+    reference's prefill-with-state from the same state, within ``FWD``;
+    ``rows`` limits the state writes."""
+    cfg_j, cfg_t = _ssm_cfgs()
+    pj = JM.init_mamba(jax.random.key(7), cfg_j)
+    pt = {k: (torch.as_tensor(np.array(v)) if not isinstance(v, dict)
+              else {kk: torch.as_tensor(np.array(vv))
+                    for kk, vv in v.items()}) for k, v in pj.items()}
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2, 11, cfg_t.d_model)).astype(np.float32)
+    zero = M.init_mamba_state(cfg_t, 2)
+    carried = {k: rng.standard_normal(tuple(v.shape)).astype(np.float32)
+               for k, v in zero.items()}
+    yj, sj = JM.apply_mamba(pj, cfg_j, jnp.asarray(x), state={
+        k: jnp.asarray(v) for k, v in carried.items()})
+    st = {k: torch.from_numpy(v.copy()) for k, v in carried.items()}
+    yt, out = M.apply_mamba(pt, cfg_t, torch.as_tensor(x), state=st,
+                            cache_index=torch.tensor([3, 3]))
+    assert out is st
+    _close(yt, yj)
+    _close(st["ssm"], sj["ssm"])
+    _close(st["conv"], sj["conv"])
+    # rows=[1]: row 1's states advance as above, row 0's stay as carried
+    st = {k: torch.from_numpy(v.copy()) for k, v in carried.items()}
+    M.apply_mamba(pt, cfg_t, torch.as_tensor(x), state=st, cache_index=3,
+                  rows=[1])
+    for k in ("ssm", "conv"):
+        np.testing.assert_array_equal(st[k][0].numpy(), carried[k][0])
+        _close(st[k][1], np.asarray(sj[k])[1])

@@ -315,9 +315,10 @@ def test_mamba_params_round_trip_and_flatten_exactly():
 
 def test_mamba_serving_functions_raise():
     """The serving functions run (held to the reference in
-    test_torch_serving_models.py); what the port still leaves out raises:
-    a prefill resumed from a carried state, and a scan from a given
-    initial state."""
+    test_torch_serving_models.py), a prefill resumed from a carried state
+    too (here the zero state: the fresh prefill's output and states); what
+    the port still leaves out raises: a scan through ``ops.ssd_scan`` from
+    a given initial state."""
     cfg = R.tiny_config("ssm")
     st = M.init_mamba_state(cfg, 2)
     assert st["ssm"].shape == (2, cfg.ssm_heads, cfg.ssm_headdim,
@@ -330,9 +331,16 @@ def test_mamba_serving_functions_raise():
                                torch.ones(2, 1, 1, n), st["ssm"])
     assert y.shape == (2, 1, h, p) and torch.all(new == 1.0)
     params = M.init_mamba(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="carried SSM state"):
-        M.apply_mamba(params, cfg, torch.zeros(2, 8, cfg.d_model), state=st,
-                      cache_index=torch.tensor([4, 4]))
+    xin = torch.randn(2, 8, cfg.d_model,
+                      generator=torch.Generator().manual_seed(1))
+    fresh = M.init_mamba_state(cfg, 2)
+    y0, _ = M.apply_mamba(params, cfg, xin, state=fresh, cache_index=0)
+    y1, out = M.apply_mamba(params, cfg, xin, state=st,
+                            cache_index=torch.tensor([4, 4]))
+    assert out is st
+    _close(y1, y0, FWD)
+    _close(st["ssm"], fresh["ssm"], FWD)
+    _close(st["conv"], fresh["conv"], FWD)
     x = torch.zeros(1, 8, h, p)
     with pytest.raises(ValueError, match="initial_state"):
         ops.ssd_scan(x, torch.ones(1, 8, h), -torch.ones(h),
